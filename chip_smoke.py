@@ -18,10 +18,13 @@ Phases (any failure ends the run with a nonzero exit code):
                 held to the golden assertions;
   6. flagship — the main path: SolidReactionAnalysis on the 24x24x96 lattice
                 (1,390,179 DOF, dtype float32: f64 CG preconditioned by the
-                f32 V-cycle) with the kernel launch counts set to 0 just
-                before and read just after;
+                f32 V-cycle), then 3 warm runs whose median is the accurate
+                solve time;
   7. bench    — bench.py's flow (face-clamped cantilever, StructuredMultigrid
                 + pcg to 1e-5, then pcg_refined to 1e-8) through the port.
+Phases 5, 6 and 7 each set the kernel launch counts to 0 just before their
+first run, read them just after and check them against the count the solve
+implies.
 The last two lines are a {"kernels": [...]} JSON object and the
 {"ok": true, "device": {...}} JSON object. Without CUDA it exits nonzero and
 prints no result.
@@ -45,13 +48,12 @@ H = 1.6 / 96  # flagship cell size (bench.py)
 E, NU = 2e11, 0.3
 TOL = {"float32": 1e-5, "float64": 1e-12}  # max|kernel - plain| / max|plain|
 
-# Published peaks (NVIDIA data sheets, dense, no tensor cores for FP32/FP64):
-# FP32 TFLOP/s, FP64 TFLOP/s, memory TB/s.
+# Published peaks (NVIDIA data sheets, dense): FP32 TFLOP/s outside the
+# tensor cores, FP64 TFLOP/s on the tensor cores (DMMA, full IEEE FP64, the
+# card's highest FP64 rate), memory TB/s.
 PEAKS = {
-    "H100 PCIe": (51.2, 25.6, 2.0),
-    "H100 NVL": (60.0, 30.0, 3.9),
-    "H100 SXM": (67.0, 34.0, 3.35),
-    "H200": (67.0, 34.0, 4.8),
+    "H100 SXM": (67.0, 67.0, 3.35),
+    "H100 PCIe": (51.2, 51.2, 2.0),
 }
 
 
@@ -60,13 +62,13 @@ def log(*a):
 
 
 def peaks_for(name: str):
-    if "H200" in name:
-        return "H200", PEAKS["H200"]
-    if "PCIe" in name:
+    """The data-sheet peaks of the card torch names; raises for any other
+    card ("NVIDIA H100 80GB HBM3" is the SXM part)."""
+    if "H100" in name and "PCIe" in name:
         return "H100 PCIe", PEAKS["H100 PCIe"]
-    if "NVL" in name:
-        return "H100 NVL", PEAKS["H100 NVL"]
-    return "H100 SXM", PEAKS["H100 SXM"]
+    if "H100" in name and ("SXM" in name or "HBM3" in name):
+        return "H100 SXM", PEAKS["H100 SXM"]
+    raise ValueError(f"no published peaks for {name!r}; add its row to PEAKS")
 
 
 def cuda_ms(fn, reps=25, inner=10):
@@ -103,6 +105,15 @@ def wall_s(fn):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def counted(torch, cm, fn):
+    """Run fn with the kernel launch counts set to 0 just before and read
+    just after; returns (counts by dtype name, seconds, fn's result)."""
+    torch.cuda.synchronize()
+    cm.LAUNCHES.clear()
+    secs, out = wall_s(fn)
+    return dict(cm.LAUNCHES), secs, out
 
 
 def phase_kernels(torch, cm, StructuredSolidOperator, peaks):
@@ -168,9 +179,9 @@ def phase_kernels(torch, cm, StructuredSolidOperator, peaks):
     return rows
 
 
-def reference_case(femx_torch):
+def reference_case(torch, femx_torch, cm):
     """Phase 5: README quick start on the card, golden assertions of
-    tests/test_reference_goldens.py:164-182."""
+    tests/test_reference_goldens.py:164-182; returns the launch counts."""
     corners = [(0, 0), (0, 0.8), (0.8, 0), (0.8, 0.8)]
     mesh = femx_torch.box_tet10(0.8, 0.2, 0.8, 0.05, force_points=[(0.4, 0.2, 0.4)],
                                 fix_points=[(x, 0, z) for x, z in corners])
@@ -179,8 +190,14 @@ def reference_case(femx_torch):
                 "force_y_pstn": 0.2, "force_z_pstn": 0.4}],
         [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
          for x, z in corners], E=E, v=NU, verbose=False, device=DEVICE)
-    fa.run_simulation()
+    launches, t_run, _ = counted(torch, cm, fa.run_simulation)
+    log(f"   run_simulation {t_run:.6f} s")
     log(f"   solve_info {fa.solve_info}")
+    # f64 block-Jacobi PCG: K once for the initial residual, once per
+    # iteration, once for the reactions
+    want = {"float64": fa.solve_info["iterations"] + 2}
+    log(f"   launch check: expect {want}, got {launches}")
+    check(launches == want, "default case launch count mismatch")
     log(f"   stage_times {fa.stage_times}")
     R = np.array([fa.reaction_forces[3 * i["node_idx"]:3 * i["node_idx"] + 3]
                   for i in fa.fixed_nodes_info])
@@ -195,6 +212,7 @@ def reference_case(femx_torch):
     check(np.all(np.abs(np.abs(R[:, [0, 2]]) - 376.0) <= 0.15 * 376.0), "|Rx|,|Rz| ~ 376")
     check(R[0, 0] < 0 and R[1, 0] < 0 and R[2, 0] > 0 and R[3, 0] > 0, "Rx signs")
     check(R[0, 2] < 0 and R[1, 2] > 0 and R[2, 2] < 0 and R[3, 2] > 0, "Rz signs")
+    return launches
 
 
 def flagship_case(torch, femx_torch, cm):
@@ -214,12 +232,9 @@ def flagship_case(torch, femx_torch, cm):
     fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=E, v=NU, dtype=np.float32,
                                           cg_tol=1e-8, solver="auto", verbose=False,
                                           device=DEVICE)
-    torch.cuda.synchronize()
-    cm.LAUNCHES.clear()
-    t_run, _ = wall_s(fa.run_simulation)
-    launches = dict(cm.LAUNCHES)
+    launches, t_run, _ = counted(torch, cm, fa.run_simulation)
     info = fa.solve_info
-    log(f"   mesh {t_mesh:.3f} s; run_simulation {t_run:.3f} s")
+    log(f"   mesh {t_mesh:.6f} s; first run_simulation {t_run:.6f} s")
     log(f"   solve_info {info}")
     log(f"   stage_times {fa.stage_times}")
     check(info["method"] == "structured_multigrid_pcg_mixed", info["method"])
@@ -238,10 +253,23 @@ def flagship_case(torch, femx_torch, cm):
     want = {"float64": it + 2, "float32": 5 * (len(fa._precond.levels) - 1) * (it + 1)}
     log(f"   launch check: {it} iterations -> expect {want}, got {launches}")
     check(launches == want, "launch count mismatch")
-    return launches
+
+    # accurate solve time: the same entry point, warm, median of 3
+    runs = []
+    for _ in range(3):
+        t, _ = wall_s(fa.run_simulation)
+        runs.append({"run_simulation_s": t, "iterations": fa.solve_info["iterations"],
+                     "precond_setup_s": fa.solve_info["precond_setup_s"],
+                     "solve_s": fa.solve_info["solve_s"]})
+        check(fa.solve_info["converged"] and np.linalg.norm(fa.equilibrium_residual())
+              <= 1e-6 * fnorm, "warm flagship run did not hold")
+    warm = {"run_simulation_s": statistics.median(r["run_simulation_s"] for r in runs),
+            "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs}
+    log(f"   accurate solve, warm (median of 3): {json.dumps(warm)}")
+    return launches, warm
 
 
-def bench_flow(torch, femx_torch):
+def bench_flow(torch, femx_torch, cm):
     """Phase 7: bench.py:64-145 through the port's modules."""
     from femx_torch.solve.cg import pcg, pcg_refined
     from femx_torch.solve.multigrid import StructuredMultigrid
@@ -273,15 +301,30 @@ def bench_flow(torch, femx_torch):
                            refine_steps=6, A_residual=op64.apply_constrained,
                            b_residual=f64j, outer_tol=1e-8)
 
-    t_first, res = wall_s(solve)
+    # every pcg call applies the f32 K once up front and once per iteration,
+    # and runs one V-cycle up front and one per iteration, each of 5 applies
+    # on every level above the coarsest
+    per_vcycle = 5 * (len(mg.levels) - 1)
+    launches_f32, t_first, res = counted(torch, cm, solve)
+    want = {"float32": (1 + per_vcycle) * (res.iterations + 1)}
+    log(f"   launch check f32 solve: expect {want}, got {launches_f32}")
+    check(launches_f32 == want, "bench f32 launch count mismatch")
     runs = [wall_s(solve) for _ in range(3)]
     res = runs[-1][1]
     t_f32 = statistics.median(t for t, _ in runs)
-    wall_s(solve_refined)
+    # pcg_refined: 1 + passes pcg calls in f32, 1 + passes f64 residuals
+    launches_ref, _, rr = counted(torch, cm, solve_refined)
+    passes = launches_ref.get("float64", 0) - 1
+    want = {"float32": (1 + per_vcycle) * (rr.iterations + passes + 1),
+            "float64": passes + 1}
+    log(f"   launch check refined solve: {passes} passes -> expect {want}, "
+        f"got {launches_ref}")
+    check(0 <= passes <= 6 and launches_ref == want, "bench refined launch count mismatch")
     runs_r = [wall_s(solve_refined) for _ in range(3)]
     rr = runs_r[-1][1]
     t_ref = statistics.median(t for t, _ in runs_r)
     out = {
+        "launches_f32_solve": launches_f32, "launches_refined_solve": launches_ref,
         "ndof": ndof, "levels": [lv.op.n_cells for lv in mg.levels],
         "setup_s": t_setup, "first_solve_s": t_first, "f32_solve_s": t_f32,
         "f32_solve_runs_s": [t for t, _ in runs], "f32_iters": res.iterations,
@@ -348,13 +391,13 @@ def main() -> int:
     rows = phase_kernels(torch, cm, StructuredSolidOperator, peaks)
 
     log("5. reference default case on the card")
-    reference_case(femx_torch)
+    launches_default = reference_case(torch, femx_torch, cm)
 
     log("6. flagship main path through SolidReactionAnalysis")
-    launches = flagship_case(torch, femx_torch, cm)
+    launches, warm = flagship_case(torch, femx_torch, cm)
 
     log("7. bench flow")
-    bench_flow(torch, femx_torch)
+    bench = bench_flow(torch, femx_torch, cm)
 
     kernels = []
     for name, row in rows.items():
@@ -364,9 +407,19 @@ def main() -> int:
             "source": "femx_torch/csrc/structured_cell_matmul.cu",
             "replaces": "femx/elements/pallas_structured.py:101",
             "launches": int(launches.get(name, 0)), **row,
+            "launches_by_path": {
+                "default_case": launches_default.get(name, 0), "flagship": launches.get(name, 0),
+                "bench_f32_solve": bench["launches_f32_solve"].get(name, 0),
+                "bench_refined_solve": bench["launches_refined_solve"].get(name, 0)},
         })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+    log("end-to-end: " + json.dumps({
+        "accurate_solve_run_simulation_s": warm["run_simulation_s"],
+        "accurate_solve_solve_s": warm["solve_s"],
+        "bench_f32_solve_s": bench["f32_solve_s"], "bench_f32_iters": bench["f32_iters"],
+        "bench_refined_solve_s": bench["refined_solve_s"],
+        "bench_refined_inner_iters": bench["refined_inner_iters"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,8 @@ equilibrium check):
   react    -> r = K u with the unconstrained operator
 
 Everything runs on `device` (None = CUDA; without CUDA it raises unless the
-caller passes device="cpu").
+caller passes device="cpu"), in `dtype` (None = config.default_dtype(),
+float64 unless FEMX_DTYPE says otherwise).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ import torch
 
 from femx_torch import bc as bc_mod
 from femx_torch.assembly_structured import StructuredSolidOperator
-from femx_torch.config import DEFAULT_COMPAT, ReferenceCompat, resolve_device
+from femx_torch.config import (DEFAULT_COMPAT, ReferenceCompat, default_dtype,
+                               numpy_dtype, resolve_device)
 from femx_torch.elements.tet10 import material_matrix
 from femx_torch.mesh.core import Mesh, nodes_in_physical_group
 from femx_torch.solve.cg import pcg, pcg_mixed
@@ -135,7 +137,7 @@ class SolidReactionAnalysis:
         t0 = time.perf_counter()
         self.operator = StructuredSolidOperator.from_mesh(
             self.mesh, self.E, self.v, weight=self.weight,
-            dtype=self.dtype or np.float64, device=self.device)
+            dtype=self.dtype or numpy_dtype(default_dtype()), device=self.device)
         self.negative_detJ_count = 0
         self.stage_times["assemble"] = time.perf_counter() - t0
         self._log("   - Assembly complete.")

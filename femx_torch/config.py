@@ -29,7 +29,8 @@ _DEFAULT_DTYPE = (torch.float64 if os.environ.get("FEMX_DTYPE", "float64") == "f
 
 def default_dtype() -> torch.dtype:
     """The framework-wide default floating dtype (float64 unless FEMX_DTYPE
-    says otherwise)."""
+    says otherwise): the dtype SolidReactionAnalysis solves in when it is
+    given none."""
     return _DEFAULT_DTYPE
 
 

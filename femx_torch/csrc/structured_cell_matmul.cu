@@ -16,10 +16,13 @@
 //
 // What bounds it on an H100 SXM: 2*81*81 = 13,122 flops per cell against
 // ~424 bytes per cell in f32 (81 outputs written, ~25 lattice values of u
-// read), ~31 flops/byte, above the FP32 ridge of 67 TFLOP/s / 3.35 TB/s = 20;
-// in f64 ~15 flops/byte against a ridge of 34 / 3.35 = 10. So the FMA rate
-// bounds it (~10.8 us f32, ~21.3 us f64 at 24x24x96 cells). No tensor cores:
-// TF32 breaks the operator's symmetry and CG diverges.
+// read), ~31 flops/byte, above the FP32 ridge of 67 TFLOP/s / 3.35 TB/s = 20,
+// so the FP32 FMA rate bounds f32 (~10.8 us at 24x24x96 cells). In f64 it is
+// ~15 flops/byte, below the ridge of the FP64 tensor cores (DMMA, full IEEE
+// FP64, 67 / 3.35 = 20), so bytes bound f64 (~14.0 us). This version runs
+// plain FP64 FMAs (34 TFLOP/s, ~21.3 us at best); reaching the f64 bound
+// takes DMMA. No TF32 for f32: it breaks the operator's symmetry and CG
+// diverges.
 //
 // Design (the simple, correct first version): one block of 256 threads per
 // tile of 64 consecutive cells. Kcell (26 KB f32, 52.5 KB f64) is staged in

@@ -26,11 +26,7 @@ def _run(code_or_args, cwd=REPO, timeout=120):
                           timeout=timeout)
 
 
-def test_import_and_solve_with_jax_and_femx_blocked():
-    code = """
-import sys
-sys.modules["jax"] = None
-sys.modules["femx"] = None
+_TINY_SOLVE = """
 import femx_torch
 mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05, force_points=[(0.2, 0.05, 0.05)],
                             fix_points=[(0, 0, 0), (0, 0.1, 0), (0, 0, 0.1), (0, 0.1, 0.1)])
@@ -42,6 +38,15 @@ fa = femx_torch.SolidReactionAnalysis(
     E=2e11, v=0.3, verbose=False, device="cpu")
 fa.run_simulation()
 assert fa.solve_info["converged"], fa.solve_info
+"""
+
+
+def test_import_and_solve_with_jax_and_femx_blocked():
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["femx"] = None
+""" + _TINY_SOLVE + """
 assert abs(fa.equilibrium_residual()).max() < 1e-6
 assert not any(m == "jax" or m.startswith(("jax.", "femx.")) or m == "femx"
                for m in sys.modules if sys.modules[m] is not None)
@@ -68,6 +73,7 @@ def test_no_cuda_means_raise_not_fallback():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*(REPO / "femx_torch").rglob("*.py"),
+                                       *(REPO / "scripts").glob("*.py"),
                                        REPO / "chip_smoke.py"]))
 def test_sources_import_neither_jax_nor_femx(path):
     text = (REPO / path).read_text()
@@ -105,3 +111,19 @@ def test_default_dtype_is_float64():
     assert numpy_dtype(torch.float64) == np.float64
     with pytest.raises(TypeError):
         torch_dtype(np.int32)
+
+
+@pytest.mark.parametrize("env_dtype,method", [
+    ("float64", "structured_block_jacobi_pcg"),
+    ("float32", "structured_block_jacobi_pcg_mixed"),
+])
+def test_entry_point_dtype_follows_femx_dtype(monkeypatch, env_dtype, method):
+    """SolidReactionAnalysis with no dtype solves in FEMX_DTYPE's type."""
+    monkeypatch.setenv("FEMX_DTYPE", env_dtype)
+    code = _TINY_SOLVE + """
+from femx_torch.config import default_dtype
+print(default_dtype(), fa.operator.dtype, fa.solve_info["method"])
+"""
+    p = _run(code)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert p.stdout.split() == [f"torch.{env_dtype}", env_dtype, method]

@@ -126,26 +126,33 @@ def test_mg_branch_f32_mixed_matches_femx_f64(mg_femx):
     np.testing.assert_allclose(Rp, Rf, rtol=1e-6, atol=np.abs(Rf).max() * 1e-6)
 
 
-def test_f32_cast_up_refinement_loses_equilibrium_where_mixed_holds():
-    """Why the f32 branch is mixed precision and not femx's refinement: on a
-    point-supported box (6x6x24 cells, 4 corner fixes, 24,843 DOF) the f32
-    cell matrix cast up to f64 breaks the rigid-body null space, and
-    refinement against it converges to a system whose reactions miss
-    equilibrium by about 1.5 % of the load. The mixed scheme converges on
-    the f64 operator and holds equilibrium to its residual."""
+_PS_CORNERS = [(x, y, 0.0) for x in (0.0, 0.4) for y in (0.0, 0.4)]
+
+
+def _point_supported(pkg, **kw):
+    """The flagship's loading at 6x6x24 cells (24,843 DOF): tip load, the 4
+    corners of the root face fixed, dtype float32; not yet run."""
+    mesh = pkg.box_tet10(0.4, 0.4, 1.6, 0.4 / 6, force_points=[(0.2, 0.4, 1.6)],
+                         fix_points=_PS_CORNERS)
+    return pkg.SolidReactionAnalysis(
+        mesh, [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0, "force_x_pstn": 0.2,
+                "force_y_pstn": 0.4, "force_z_pstn": 1.6}],
+        [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+         for x, y, z in _PS_CORNERS], E=E, v=NU, dtype=np.float32, verbose=False, **kw)
+
+
+@pytest.fixture(scope="module")
+def point_supported_schemes():
+    """The port's two f32 schemes on the point-supported box: femx's
+    refinement against the f32 cell matrix cast up, and f64 CG with the f32
+    V-cycle. Returns their equilibrium residuals, with the reactions from
+    the f64-assembled operator and from the cast-up one (femx's choice)."""
     from femx_torch.assembly_structured import StructuredSolidOperator
     from femx_torch.solve.cg import pcg_mixed, pcg_refined
     from femx_torch.solve.multigrid import StructuredMultigrid
 
-    corners = [(x, y, 0.0) for x in (0.0, 0.4) for y in (0.0, 0.4)]
-    mesh = femx_torch.box_tet10(0.4, 0.4, 1.6, 0.4 / 6, force_points=[(0.2, 0.4, 1.6)],
-                                fix_points=corners)
-    fa = femx_torch.SolidReactionAnalysis(
-        mesh, [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0, "force_x_pstn": 0.2,
-                "force_y_pstn": 0.4, "force_z_pstn": 1.6}],
-        [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
-         for x, y, z in corners], E=E, v=NU, dtype=np.float32, verbose=False,
-        device="cpu")
+    fa = _point_supported(femx_torch, device="cpu")
+    mesh = fa.mesh
     fa.assemble_stiffness_matrix()
     fa.apply_boundary_conditions()
     mask = fa.constraints.free_mask()
@@ -157,8 +164,8 @@ def test_f32_cast_up_refinement_loses_equilibrium_where_mixed_holds():
     op_f64 = StructuredSolidOperator.from_mesh(
         mesh, E, NU, dtype=np.float64, device="cpu").with_free_mask(op.free_mask_host)
 
-    def equilibrium(x):
-        r = op.to_global(op_f64.apply(x).numpy())
+    def equilibrium(x, K):
+        r = op.to_global(K.apply(x).numpy())
         return np.array([0.0, -1000.0, 0.0]) + sum(
             r[3 * i["node_idx"]:3 * i["node_idx"] + 3] for i in fa.fixed_nodes_info)
 
@@ -167,8 +174,38 @@ def test_f32_cast_up_refinement_loses_equilibrium_where_mixed_holds():
                       b_residual=b, outer_tol=1e-8)
     mixed = pcg_mixed(op_f64.apply_constrained, b, mg, tol=1e-8)
     assert ref.converged and mixed.converged
-    assert np.abs(equilibrium(ref.x)).max() > 5.0  # ~15 N of a 1000 N load
-    assert np.abs(equilibrium(mixed.x)).max() < 1e-5
+    return {"refined": equilibrium(ref.x, op_f64),
+            "refined_cast_up": equilibrium(ref.x, op_cast),
+            "mixed": equilibrium(mixed.x, op_f64)}
+
+
+def test_f32_cast_up_refinement_loses_equilibrium_where_mixed_holds(point_supported_schemes):
+    """Why the f32 branch is mixed precision and not femx's refinement: on a
+    point-supported box the f32 cell matrix cast up to f64 breaks the
+    rigid-body null space, and refinement against it converges to a system
+    whose reactions miss equilibrium by about 1.5 % of the load. The mixed
+    scheme converges on the f64 operator and holds equilibrium to its
+    residual."""
+    eq = point_supported_schemes
+    assert np.abs(eq["refined"]).max() > 5.0  # ~15 N of a 1000 N load
+    assert np.abs(eq["mixed"]).max() < 1e-5
+
+
+def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schemes):
+    """femx itself, through SolidReactionAnalysis(dtype=float32), misses
+    equilibrium on the point-supported box by what the port's refinement
+    misses it: the loss is the cast-up scheme's, not the port's. (femx's
+    block-Jacobi branch keeps the test cheap; its refinement converges to
+    the same cast-up system as the MG branch.)"""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FEMX_MG_CACHE", "0")
+        fx = _point_supported(femx, solver="cg", cg_tol=1e-8).run_simulation()
+    assert fx.solve_info["method"] == "structured_block_jacobi_pcg_refined"
+    assert fx.solve_info["converged"]
+    eq = fx.equilibrium_residual()
+    assert np.abs(eq).max() > 5.0
+    np.testing.assert_allclose(eq, point_supported_schemes["refined_cast_up"],
+                               rtol=1e-5, atol=1e-6 * 1000.0)
 
 
 @pytest.mark.parametrize("kw,item", [
