@@ -8,23 +8,41 @@ Run from the root of the repository on a machine with one NVIDIA GPU:
 Phases (any failure ends the run with a nonzero exit code):
   1. device   — nvidia-smi's name and power limit, torch's device name;
   2. build    — nvcc builds every kernel under femx_torch/csrc;
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                float32 and float64, at the flagship shape (24, 24, 96) and
-                an odd small one (5, 3, 7);
-  4. timing   — kernel, plain and library times (CUDA events, median) beside
-                the card's bound for the same work;
+  3. kernels  — structured_cell_matmul against its plain PyTorch version on
+                the card, float32 and float64, at the flagship shape
+                (24, 24, 96) and an odd small one (5, 3, 7);
+  4. timing   — its kernel, plain and library times (CUDA events, median)
+                beside the card's bound for the same work;
   5. default  — the reference default case (README quick start, 29,403 DOF,
                 block-Jacobi, f64) through SolidReactionAnalysis on the card,
                 held to the golden assertions;
-  6. flagship — the main path: SolidReactionAnalysis on the 24x24x96 lattice
-                (1,390,179 DOF, dtype float32: f64 CG preconditioned by the
-                f32 V-cycle), then 3 warm runs whose median is the accurate
-                solve time;
+  6. flagship — SolidReactionAnalysis on the 24x24x96 lattice (1,390,179
+                DOF, dtype float32: f64 CG preconditioned by the f32
+                V-cycle), then warm runs whose median is the accurate solve
+                time;
   7. bench    — bench.py's flow (face-clamped cantilever, StructuredMultigrid
-                + pcg to 1e-5, then pcg_refined to 1e-8) through the port.
-Phases 5, 6 and 7 each set the kernel launch counts to 0 just before their
-first run, read them just after and check them against the count the solve
-implies.
+                + pcg to 1e-5, then pcg_refined to 1e-8) through the port;
+  8. unstructured flagship — the same box relabelled with
+                default_rng(0).permutation, written with write_msh and solved
+                by SolidReactionAnalysis(path, dtype=float32, cg_tol=1e-8):
+                the transpose-gather operator (take_rows kernel) with the
+                lattice-MG preconditioner, f32 CG with f64 refinement
+                (femx's scheme on this route); its corner reactions held to
+                phase 6's;
+  9. take_rows against its plain version (exact) at that operator's
+                gathers, float32 and float64, then timed;
+ 10. unstructured bench — bench.py:223-308 with the TG operator: f32 pcg
+                with the lattice preconditioner to 1e-5, 17 +- 2 iterations,
+                profiled once;
+ 11. small mesh files — the README default box from a .msh file (TG +
+                block-Jacobi, f64; reactions held to phase 5's) and a coarse
+                box of <= 6,000 DOF (dense Cholesky);
+ 12. examples — the Pallas repro counterparts (row_copy, take_rows,
+                take_along_axis at each repro's inputs, exact) and
+                bench_dyngather's sweep; take_along_axis and row_copy timed.
+Phases 5-8 and 10-12 each set the kernel launch counts to 0 just before
+their first run, read them just after and check them against the count the
+solve implies.
 The last two lines are a {"kernels": [...]} JSON object and the
 {"ok": true, "device": {...}} JSON object. Without CUDA it exits nonzero and
 prints no result.
@@ -42,6 +60,7 @@ import time
 import numpy as np
 
 DEVICE = "cuda"
+WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
 FLAGSHIP = (24, 24, 96)
 ODD = (5, 3, 7)
 H = 1.6 / 96  # flagship cell size (bench.py)
@@ -107,13 +126,42 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def counted(torch, cm, fn):
-    """Run fn with the kernel launch counts set to 0 just before and read
-    just after; returns (counts by dtype name, seconds, fn's result)."""
+CORNERS_FLAGSHIP = [(x, y, 0.0) for x in (0.0, 0.4) for y in (0.0, 0.4)]
+CORNERS_DEFAULT = [(0, 0), (0, 0.8), (0.8, 0), (0.8, 0.8)]
+
+
+def corner_reactions(fa):
+    return np.array([fa.reaction_forces[3 * i["node_idx"]:3 * i["node_idx"] + 3]
+                     for i in fa.fixed_nodes_info])
+
+
+def rel_diff(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+
+# the kernel wrapper modules, set by main() once the package is importable
+CM = GATHER = None
+
+
+def launch_counts():
+    """Every kernel's launch count, keyed "<kernel>/<dtype>"."""
+    out = {f"structured_cell_matmul/{k}": v for k, v in CM.LAUNCHES.items() if v}
+    out.update((k, v) for k, v in GATHER.LAUNCHES.items() if v)
+    return out
+
+
+def counted(torch, fn):
+    """Run fn with every kernel launch count set to 0 just before and read
+    just after; returns (counts by "<kernel>/<dtype>", seconds, fn's
+    result)."""
     torch.cuda.synchronize()
-    cm.LAUNCHES.clear()
+    CM.LAUNCHES.clear()
+    GATHER.LAUNCHES.clear()
     secs, out = wall_s(fn)
-    return dict(cm.LAUNCHES), secs, out
+    return launch_counts(), secs, out
+
+
+SCM = "structured_cell_matmul"
 
 
 def phase_kernels(torch, cm, StructuredSolidOperator, peaks):
@@ -179,10 +227,11 @@ def phase_kernels(torch, cm, StructuredSolidOperator, peaks):
     return rows
 
 
-def reference_case(torch, femx_torch, cm):
+def reference_case(torch, femx_torch):
     """Phase 5: README quick start on the card, golden assertions of
-    tests/test_reference_goldens.py:164-182; returns the launch counts."""
-    corners = [(0, 0), (0, 0.8), (0.8, 0), (0.8, 0.8)]
+    tests/test_reference_goldens.py:164-182; returns the launch counts and
+    the corner reactions."""
+    corners = CORNERS_DEFAULT
     mesh = femx_torch.box_tet10(0.8, 0.2, 0.8, 0.05, force_points=[(0.4, 0.2, 0.4)],
                                 fix_points=[(x, 0, z) for x, z in corners])
     fa = femx_torch.SolidReactionAnalysis(
@@ -190,17 +239,16 @@ def reference_case(torch, femx_torch, cm):
                 "force_y_pstn": 0.2, "force_z_pstn": 0.4}],
         [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
          for x, z in corners], E=E, v=NU, verbose=False, device=DEVICE)
-    launches, t_run, _ = counted(torch, cm, fa.run_simulation)
+    launches, t_run, _ = counted(torch, fa.run_simulation)
     log(f"   run_simulation {t_run:.6f} s")
     log(f"   solve_info {fa.solve_info}")
     # f64 block-Jacobi PCG: K once for the initial residual, once per
     # iteration, once for the reactions
-    want = {"float64": fa.solve_info["iterations"] + 2}
+    want = {f"{SCM}/float64": fa.solve_info["iterations"] + 2}
     log(f"   launch check: expect {want}, got {launches}")
     check(launches == want, "default case launch count mismatch")
     log(f"   stage_times {fa.stage_times}")
-    R = np.array([fa.reaction_forces[3 * i["node_idx"]:3 * i["node_idx"] + 3]
-                  for i in fa.fixed_nodes_info])
+    R = corner_reactions(fa)
     log(f"   corner reactions {R.tolist()}")
     eq = fa.equilibrium_residual()
     check(fa.solve_info["converged"], "default case did not converge")
@@ -212,12 +260,13 @@ def reference_case(torch, femx_torch, cm):
     check(np.all(np.abs(np.abs(R[:, [0, 2]]) - 376.0) <= 0.15 * 376.0), "|Rx|,|Rz| ~ 376")
     check(R[0, 0] < 0 and R[1, 0] < 0 and R[2, 0] > 0 and R[3, 0] > 0, "Rx signs")
     check(R[0, 2] < 0 and R[1, 2] > 0 and R[2, 2] < 0 and R[3, 2] > 0, "Rz signs")
-    return launches
+    return launches, R
 
 
-def flagship_case(torch, femx_torch, cm):
-    """Phase 6: the main path at 1,390,179 DOF; returns the launch counts."""
-    corners = [(x, y, 0.0) for x in (0.0, 0.4) for y in (0.0, 0.4)]
+def flagship_case(torch, femx_torch, warm_runs=3):
+    """Phase 6: the structured path at 1,390,179 DOF; returns the launch
+    counts, the warm timings and the corner reactions."""
+    corners = CORNERS_FLAGSHIP
     t0 = time.perf_counter()
     mesh = femx_torch.box_tet10(0.4, 0.4, 1.6, mesh_size=H, force_points=[(0.2, 0.4, 1.6)],
                                 fix_points=corners)
@@ -232,7 +281,7 @@ def flagship_case(torch, femx_torch, cm):
     fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=E, v=NU, dtype=np.float32,
                                           cg_tol=1e-8, solver="auto", verbose=False,
                                           device=DEVICE)
-    launches, t_run, _ = counted(torch, cm, fa.run_simulation)
+    launches, t_run, _ = counted(torch, fa.run_simulation)
     info = fa.solve_info
     log(f"   mesh {t_mesh:.6f} s; first run_simulation {t_run:.6f} s")
     log(f"   solve_info {info}")
@@ -250,13 +299,16 @@ def flagship_case(torch, femx_torch, cm):
     # iteration) runs 5 applies (2+2 sweeps + residual) on every level above
     # the coarsest
     it = info["iterations"]
-    want = {"float64": it + 2, "float32": 5 * (len(fa._precond.levels) - 1) * (it + 1)}
+    want = {f"{SCM}/float64": it + 2,
+            f"{SCM}/float32": 5 * (len(fa._precond.levels) - 1) * (it + 1)}
     log(f"   launch check: {it} iterations -> expect {want}, got {launches}")
     check(launches == want, "launch count mismatch")
 
-    # accurate solve time: the same entry point, warm, median of 3
+    R = corner_reactions(fa)
+    log(f"   corner reactions {R.tolist()}")
+    # accurate solve time: the same entry point, warm, median of warm_runs
     runs = []
-    for _ in range(3):
+    for _ in range(warm_runs):
         t, _ = wall_s(fa.run_simulation)
         runs.append({"run_simulation_s": t, "iterations": fa.solve_info["iterations"],
                      "precond_setup_s": fa.solve_info["precond_setup_s"],
@@ -265,11 +317,11 @@ def flagship_case(torch, femx_torch, cm):
               <= 1e-6 * fnorm, "warm flagship run did not hold")
     warm = {"run_simulation_s": statistics.median(r["run_simulation_s"] for r in runs),
             "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs}
-    log(f"   accurate solve, warm (median of 3): {json.dumps(warm)}")
-    return launches, warm
+    log(f"   accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
+    return launches, warm, R
 
 
-def bench_flow(torch, femx_torch, cm):
+def bench_flow(torch, femx_torch):
     """Phase 7: bench.py:64-145 through the port's modules."""
     from femx_torch.solve.cg import pcg, pcg_refined
     from femx_torch.solve.multigrid import StructuredMultigrid
@@ -305,18 +357,18 @@ def bench_flow(torch, femx_torch, cm):
     # and runs one V-cycle up front and one per iteration, each of 5 applies
     # on every level above the coarsest
     per_vcycle = 5 * (len(mg.levels) - 1)
-    launches_f32, t_first, res = counted(torch, cm, solve)
-    want = {"float32": (1 + per_vcycle) * (res.iterations + 1)}
+    launches_f32, t_first, res = counted(torch, solve)
+    want = {f"{SCM}/float32": (1 + per_vcycle) * (res.iterations + 1)}
     log(f"   launch check f32 solve: expect {want}, got {launches_f32}")
     check(launches_f32 == want, "bench f32 launch count mismatch")
     runs = [wall_s(solve) for _ in range(3)]
     res = runs[-1][1]
     t_f32 = statistics.median(t for t, _ in runs)
     # pcg_refined: 1 + passes pcg calls in f32, 1 + passes f64 residuals
-    launches_ref, _, rr = counted(torch, cm, solve_refined)
-    passes = launches_ref.get("float64", 0) - 1
-    want = {"float32": (1 + per_vcycle) * (rr.iterations + passes + 1),
-            "float64": passes + 1}
+    launches_ref, _, rr = counted(torch, solve_refined)
+    passes = launches_ref.get(f"{SCM}/float64", 0) - 1
+    want = {f"{SCM}/float32": (1 + per_vcycle) * (rr.iterations + passes + 1),
+            f"{SCM}/float64": passes + 1}
     log(f"   launch check refined solve: {passes} passes -> expect {want}, "
         f"got {launches_ref}")
     check(0 <= passes <= 6 and launches_ref == want, "bench refined launch count mismatch")
@@ -357,7 +409,327 @@ def bench_flow(torch, femx_torch, cm):
     return out
 
 
+def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
+    """Phase 8: the flagship box, relabelled and read back from a .msh file,
+    through the transpose-gather + lattice-MG route; returns the launch
+    counts, the analysis and what the end-to-end line reports."""
+    from femx_torch.mesh import relabel_nodes, write_msh
+
+    t_mesh, mesh = wall_s(lambda: femx_torch.box_tet10(
+        0.4, 0.4, 1.6, mesh_size=H, force_points=[(0.2, 0.4, 1.6)],
+        fix_points=CORNERS_FLAGSHIP))
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, "flagship_relabelled.msh")
+    t_write, _ = wall_s(lambda: write_msh(path, mesh))
+    log(f"   mesh {t_mesh:.6f} s; write_msh {t_write:.6f} s "
+        f"({os.path.getsize(path) / 1e6:.1f} MB, {mesh.num_nodes} nodes)")
+    force = [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0,
+              "force_x_pstn": 0.2, "force_y_pstn": 0.4, "force_z_pstn": 1.6}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in CORNERS_FLAGSHIP]
+    t_ctor, fa = wall_s(lambda: femx_torch.SolidReactionAnalysis(
+        path, force, fix, E=E, v=NU, dtype=np.float32, cg_tol=1e-8, verbose=False,
+        device=DEVICE))
+    os.remove(path)
+    ndof = 3 * np.prod([2 * c + 1 for c in FLAGSHIP])  # 1,390,179 at 24x24x96
+    check(fa.mesh.structured is None and 3 * fa.num_nodes == ndof,
+          f"unstructured flagship has {3 * fa.num_nodes} DOF")
+    launches, t_run, _ = counted(torch, fa.run_simulation)
+    info = fa.solve_info
+    log(f"   constructor (reads the file) {t_ctor:.6f} s; first run_simulation {t_run:.6f} s")
+    log(f"   solve_info {info}")
+    log(f"   stage_times {fa.stage_times}")
+    check(info["method"] == "tg_lattice_mg_pcg_refined", info["method"])
+    check(info["converged"] and info["residual"] <= 1e-8, "unstructured flagship did not converge")
+    check(np.all(np.isfinite(fa.u)) and fa.u.shape == (ndof,), "bad u")
+    eq = fa.equilibrium_residual()
+    check(np.linalg.norm(eq) <= 1e-6 * 1000.0, f"equilibrium {eq}")
+    R = corner_reactions(fa)
+    rel = rel_diff(R, R_struct)
+    log(f"   corner reactions {R.tolist()}; max|R - R_structured| / max|R_structured| "
+        f"= {rel:.3e}; equilibrium residual {eq.tolist()}")
+    check(rel <= 1e-6, "corner reactions differ from the structured route's")
+    lp = fa._precond
+    per = lp.launches_per_call()
+    it = info["iterations"]
+    g = fa.operator.gathers_per_apply
+    # femx's f32 scheme (pcg_refined): 1 + passes f32 pcg calls, each an
+    # f32 TG apply and a lattice-preconditioner call up front and per
+    # iteration (each call its transfer gathers and 2 V-cycles + 1 lattice
+    # apply); an f64 residual apply up front and per pass; one f64 apply for
+    # the reactions
+    passes = launches.get("take_rows/float64", 0) // g - 2
+    calls = it + 1 + passes
+    want = {"take_rows/float64": (passes + 2) * g,
+            "take_rows/float32": calls * (g + per["take_rows"]),
+            f"{SCM}/float32": calls * per[SCM]}
+    log(f"   lattice {lp.n_cells} cells, levels {[lv.op.n_cells for lv in lp.mg.levels]}, "
+        f"transfer {type(lp.transfer).__name__}; per apply {g} take_rows, per "
+        f"preconditioner call {per}")
+    log(f"   launch check: {it} inner iterations, {passes} refinement passes -> expect "
+        f"{want}, got {launches}")
+    check(0 <= passes <= 8 and launches == want, "unstructured flagship launch count mismatch")
+    runs = []
+    for _ in range(warm_runs):
+        t, _ = wall_s(fa.run_simulation)
+        runs.append({"run_simulation_s": t, "iterations": fa.solve_info["iterations"],
+                     "precond_setup_s": fa.solve_info["precond_setup_s"],
+                     "solve_s": fa.solve_info["solve_s"], "stage_times": dict(fa.stage_times)})
+        check(fa.solve_info["converged"] and np.linalg.norm(fa.equilibrium_residual())
+              <= 1e-6 * 1000.0, "warm unstructured run did not hold")
+    warm = {"run_simulation_s": statistics.median(r["run_simulation_s"] for r in runs),
+            "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs,
+            "iterations": it, "read_mesh_s": fa.stage_times["read_mesh"],
+            "write_msh_s": t_write, "corner_rel_diff": rel}
+    log(f"   unstructured accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
+    return launches, fa, warm
+
+
+def tg_kernel_rows(torch, fa, mem_tb):
+    """Phase 9: take_rows == its plain version at every gather of the
+    unstructured flagship's apply (u3[connT] and each degree bucket), float32
+    and float64; timed at u3[connT] against index_select and the bound."""
+    op = fa.operator
+    rows = {}
+    for dt in (np.float32, np.float64):
+        name = np.dtype(dt).name
+        rng = np.random.default_rng(0)
+        u3 = torch.as_tensor(rng.standard_normal((op.n_nodes, 3)).astype(dt), device=DEVICE)
+        fe3 = torch.as_tensor(rng.standard_normal((10 * op.n_elements, 3)).astype(dt),
+                              device=DEVICE)
+        pairs = [(u3, op.connT)] + [(fe3, b) for b, d in
+                                    zip(op.bucket_idx, op.bucket_degrees) if d]
+        err = 0.0
+        for tab, idx in pairs:
+            k = GATHER.take_rows(tab, idx)
+            p = GATHER.take_rows_plain(tab, idx)
+            torch.cuda.synchronize()
+            err = max(err, (k - p).abs().max().item())
+        log(f"   take_rows {name}: {len(pairs)} gathers of one apply, max|k-p| = {err}")
+        check(err == 0.0, f"take_rows disagrees with plain ({name})")
+        idx = op.connT
+        idx64 = idx.long()
+        flat64 = idx64.reshape(-1)
+        out = torch.empty((*idx.shape, 3), dtype=u3.dtype, device=DEVICE)
+        fn = GATHER._kernel_fn("take_rows", u3.dtype)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            rc = fn(u3.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), 3, stream)
+            check(rc == 0, f"launch failed: cudaError {rc}")
+
+        def apply_gathers():
+            for tab, ix in pairs:
+                GATHER.take_rows(tab, ix)
+
+        item = np.dtype(dt).itemsize
+        nbytes = u3.numel() * item + idx.numel() * 4 + out.numel() * item
+        row = dict(max_abs_err=err, ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: u3[idx64]),
+                   library_ms=cuda_ms(lambda: torch.index_select(u3, 0, flat64)),
+                   library_call="torch.index_select(u3, 0, connT)",
+                   bound_ms=nbytes / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nbytes,
+                   shape=f"u3 {tuple(u3.shape)}[connT {tuple(idx.shape)}]",
+                   apply_gathers_ms=cuda_ms(apply_gathers), gathers_per_apply=len(pairs))
+        log(f"   timing take_rows {name} u3[connT]: kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, index_select {row['library_ms']:.5f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB); all {len(pairs)} gathers of "
+            f"one apply {row['apply_gathers_ms']:.5f} ms")
+        rows[name] = row
+    return rows
+
+
+def unstructured_bench(torch, femx_torch, runs_n=3):
+    """Phase 10: bench.py:223-308 with the TG operator — face-clamped,
+    relabelled, f32 TG + LatticePreconditioner, f32 pcg to 1e-5."""
+    from femx_torch.assembly_soa import SolidOperatorSoA
+    from femx_torch.assembly_tg import SolidOperatorTG
+    from femx_torch.solve.cg import pcg
+    from femx_torch.solve.lattice_precond import LatticePreconditioner
+
+    nx, ny, nz = FLAGSHIP
+    dims = (nx * H, ny * H, nz * H)
+    mesh = femx_torch.box_tet10(*dims, mesh_size=H)
+    pts, conn = mesh.points, mesh.cells["tetra10"]
+    ndof = 3 * mesh.num_nodes
+    mask = np.ones(ndof)
+    fixed = np.where(pts[:, 2] < 1e-9)[0]
+    mask[(3 * fixed[:, None] + np.arange(3)).ravel()] = 0
+    f = np.zeros(ndof)
+    tip = np.where(pts[:, 2] > dims[2] - 1e-9)[0]
+    f[3 * tip + 1] = -1000.0 / len(tip)
+    relabel = np.random.default_rng(0).permutation(len(pts))
+    pts_s = np.empty_like(pts)
+    pts_s[relabel] = pts
+    conn_s = relabel[conn]
+    mask_s = np.empty_like(mask)
+    mask_s.reshape(-1, 3)[relabel] = mask.reshape(-1, 3)
+    f_s = np.empty_like(f)
+    f_s.reshape(-1, 3)[relabel] = f.reshape(-1, 3)
+
+    t0 = time.perf_counter()
+    uop, _ = SolidOperatorTG.from_mesh(pts_s, conn_s, E, NU, dtype=np.float32, device=DEVICE)
+    torch.cuda.synchronize()
+    t_assemble = time.perf_counter() - t0
+    uop = uop.with_free_mask(uop.to_internal(mask_s))
+    lp = LatticePreconditioner(pts_s, conn_s, E, NU, mask_s, dtype=np.float32,
+                               node_perm=uop.new_of_old,
+                               bj_fn=SolidOperatorSoA.apply_block_jacobi,
+                               bj_data=uop.soa.block_jacobi_tensors(), device=DEVICE)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    fu = torch.as_tensor(uop.to_internal(f_s * mask_s).astype(np.float32), device=DEVICE)
+
+    def solve():
+        return pcg(uop.apply_constrained, fu, M_inv_diag=lp, tol=1e-5, maxiter=2000)
+
+    launches, t_first, res = counted(torch, solve)
+    per = lp.launches_per_call()
+    it = res.iterations
+    want = {"take_rows/float32": (it + 1) * (uop.gathers_per_apply + per["take_rows"]),
+            f"{SCM}/float32": (it + 1) * per[SCM]}
+    log(f"   launch check: {it} iterations -> expect {want}, got {launches}")
+    check(launches == want, "unstructured bench launch count mismatch")
+    runs = [wall_s(solve) for _ in range(runs_n)]
+    res = runs[-1][1]
+    t_solve = statistics.median(t for t, _ in runs)
+    out = {"ndof": ndof, "assemble_s": t_assemble, "setup_s": t_setup, "first_solve_s": t_first,
+           "f32_solve_s": t_solve, "f32_solve_runs_s": [t for t, _ in runs],
+           "iters": res.iterations, "residual": res.residual_norm,
+           "lattice_cells": lp.n_cells, "launches": launches}
+    log(f"   unstructured bench {json.dumps(out)}")
+    check(res.converged and abs(res.iterations - 17) <= 2,
+          f"unstructured f32 iterations {res.iterations} not 17 +- 2")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_prof, _ = wall_s(solve)
+    events = prof.key_averages()
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    n_kernels = sum(e.count for e in dev_events)
+    log("   profile of one f32 TG + lattice-MG PCG solve (top kernels by device time):")
+    log(events.table(sort_by="self_cuda_time_total", row_limit=16))
+    out.update(profiled_solve_s=t_prof, profiled_device_ms=device_ms,
+               device_kernels=n_kernels, device_kernels_per_iteration=n_kernels / (it + 1),
+               idle_share=1 - device_ms / (t_solve * 1e3))
+    log(f"   profiled solve: {t_prof * 1e3:.1f} ms wall, {device_ms:.1f} ms device time, "
+        f"{n_kernels} device kernels ({n_kernels / (it + 1):.0f} per iteration) -> device "
+        f"idle {100 * (1 - device_ms / (t_prof * 1e3)):.1f} % (unprofiled wall "
+        f"{t_solve * 1e3:.1f} ms -> idle {100 * out['idle_share']:.1f} %)")
+    return out
+
+
+def small_mesh_files(torch, femx_torch, R_default):
+    """Phase 11: the README default box from a .msh file (TG + block-Jacobi,
+    f64, reactions held to phase 5's) and a coarse box through the dense
+    Cholesky route."""
+    from femx_torch.mesh import write_msh
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    force = [{"force_x": 0, "force_y": 3000.0, "force_z": 0, "force_x_pstn": 0.4,
+              "force_y_pstn": 0.2, "force_z_pstn": 0.4}]
+    fix = [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, z in CORNERS_DEFAULT]
+    out = {}
+    for label, h in (("mesh_file_default", 0.05), ("mesh_file_dense", 0.1)):
+        mesh = femx_torch.box_tet10(0.8, 0.2, 0.8, h, force_points=[(0.4, 0.2, 0.4)],
+                                    fix_points=[(x, 0, z) for x, z in CORNERS_DEFAULT])
+        path = os.path.join(WORK_DIR, f"{label}.msh")
+        write_msh(path, mesh)
+        fa = femx_torch.SolidReactionAnalysis(path, force, fix, E=E, v=NU, verbose=False,
+                                              device=DEVICE)
+        os.remove(path)
+        launches, t_run, _ = counted(torch, fa.run_simulation)
+        info = fa.solve_info
+        eq = fa.equilibrium_residual()
+        R = corner_reactions(fa)
+        log(f"   {label}: {3 * fa.num_nodes} DOF, run_simulation {t_run:.6f} s, solve_info "
+            f"{info}, launches {launches}, equilibrium {eq.tolist()}")
+        check(np.linalg.norm(eq) <= 1e-6 * 3000.0, f"{label} equilibrium {eq}")
+        if label == "mesh_file_default":
+            check(info["method"] == "tg_block_jacobi_pcg" and info["converged"], str(info))
+            want = {"take_rows/float64": (info["iterations"] + 2) * fa.operator.gathers_per_apply}
+            rel = rel_diff(R, R_default)
+            log(f"   corner reactions vs the structured default case: rel {rel:.3e}")
+            check(rel <= 1e-9, "mesh-file default reactions differ from phase 5's")
+        else:
+            check(3 * fa.num_nodes <= 6000 and info["method"] == "dense_cholesky", str(info))
+            want = {}
+        check(launches == want, f"{label} launch count mismatch: expect {want}")
+        out[label] = {"launches": launches, "run_simulation_s": t_run, "solve_info": info}
+    return out
+
+
+def examples_phase(torch, mem_tb):
+    """Phase 12: the repro counterparts at their own inputs and the
+    bench_dyngather sweep, counted; then take_along_axis and row_copy
+    timed beside their plain versions and bounds."""
+    from femx_torch.examples import bench_dyngather, gather_repros, mosaic_repros
+
+    def run_all():
+        errs = {}
+        for mod in (mosaic_repros, gather_repros):
+            for name, fn in mod.REPROS.items():
+                got = fn().cpu().numpy()
+                errs[name] = float(np.abs(got - mod.expected(name)).max())
+        return errs, bench_dyngather.main()
+
+    launches, t_all, (errs, sweep) = counted(torch, run_all)
+    log(f"   repros max|kernel - numpy|: {errs}")
+    check(all(v == 0.0 for v in errs.values()), "a repro disagrees")
+    check(all(r["correct"] for r in sweep), "bench_dyngather sweep incorrect")
+    per_h = 2 + 5  # check, warm-up, 5 timed
+    want = {"row_copy/float32": len(mosaic_repros.REPROS), "take_rows/float32": 3,
+            "take_along_axis/float32": 2 + per_h * len(bench_dyngather.HEIGHTS)}
+    log(f"   launch check examples: expect {want}, got {launches}")
+    check(launches == want, "examples launch count mismatch")
+
+    rng = np.random.default_rng(0)
+    Hh = bench_dyngather.HEIGHTS[-1]
+    G = bench_dyngather.TOTAL // Hh
+    tab = torch.as_tensor(rng.standard_normal((Hh, 128)).astype(np.float32), device=DEVICE)
+    idx_np = rng.integers(0, Hh, size=(G * Hh, 128)).astype(np.int32)
+    idx = torch.as_tensor(idx_np, device=DEVICE)
+    idx64 = idx.long()
+    k = GATHER.take_along_axis(tab, idx, 0)
+    p = GATHER.take_along_axis_plain(tab, idx64, 0)
+    torch.cuda.synchronize()
+    err_t = (k - p).abs().max().item()
+    check(err_t == 0.0, "take_along_axis disagrees with plain")
+    nb = tab.numel() * 4 + idx.numel() * 4 + k.numel() * 4
+    tal = dict(max_abs_err=err_t, ms=cuda_ms(lambda: GATHER.take_along_axis(tab, idx, 0)),
+               plain_ms=cuda_ms(lambda: GATHER.take_along_axis_plain(tab, idx64, 0)),
+               library_ms=cuda_ms(lambda: torch.gather(tab, 0, idx64)),
+               library_call="torch.gather(tab, 0, idx)",
+               bound_ms=nb / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nb,
+               shape=f"tab ({Hh}, 128), idx {tuple(idx.shape)}, axis 0 (bench_dyngather H={Hh})",
+               sweep=sweep)
+    log(f"   timing take_along_axis: {json.dumps({k_: v for k_, v in tal.items() if k_ != 'sweep'})}")
+    del idx, idx64, k, p
+
+    x = torch.arange(16 * 128, dtype=torch.float32, device=DEVICE).reshape(16, 128)
+    r0 = torch.tensor([4], dtype=torch.int32, device=DEVICE)
+    k = GATHER.row_copy(x, r0, 8)
+    p = GATHER.row_copy_plain(x, r0, 8)
+    torch.cuda.synchronize()
+    err_r = (k - p).abs().max().item()
+    check(err_r == 0.0, "row_copy disagrees with plain")
+    nb = 2 * 8 * 128 * 4 + 4
+    rc = dict(max_abs_err=err_r, ms=cuda_ms(lambda: GATHER.row_copy(x, r0, 8)),
+              plain_ms=cuda_ms(lambda: GATHER.row_copy_plain(x, r0, 8)),
+              library_ms=cuda_ms(lambda: torch.mul(x[4:12], 1.0)),
+              library_call="torch.mul(x[4:12], 1.0)",
+              bound_ms=nb / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nb,
+              shape="x (16, 128), rows [4, 12) (repro_dynslice_value)")
+    log(f"   timing row_copy: {json.dumps(rc)}")
+    return launches, {"take_along_axis": tal, "row_copy": rc}
+
+
 def main() -> int:
+    global CM, GATHER
     import torch
 
     if not torch.cuda.is_available():
@@ -366,10 +738,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import femx_torch
-    from femx_torch import build
+    from femx_torch import build, gather
     from femx_torch.assembly_structured import StructuredSolidOperator
     from femx_torch.elements import cell_matmul as cm
 
+    CM, GATHER = cm, gather
     t_start = time.perf_counter()
     log("1. device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -387,39 +760,95 @@ def main() -> int:
     for name, (secs, out) in build.BUILD_LOG.items():
         log(f"   nvcc {name}: {secs:.2f} s\n{out.strip()}")
 
-    log("3-4. kernels against their plain versions; timing")
+    log("3-4. structured_cell_matmul against its plain version; timing")
     rows = phase_kernels(torch, cm, StructuredSolidOperator, peaks)
 
+    paths = {}
     log("5. reference default case on the card")
-    launches_default = reference_case(torch, femx_torch, cm)
+    paths["default_case"], R_default = reference_case(torch, femx_torch)
 
-    log("6. flagship main path through SolidReactionAnalysis")
-    launches, warm = flagship_case(torch, femx_torch, cm)
+    log("6. flagship (structured) through SolidReactionAnalysis")
+    paths["flagship"], warm, R_flagship = flagship_case(torch, femx_torch)
 
     log("7. bench flow")
-    bench = bench_flow(torch, femx_torch, cm)
+    bench = bench_flow(torch, femx_torch)
+    paths["bench_f32_solve"] = bench["launches_f32_solve"]
+    paths["bench_refined_solve"] = bench["launches_refined_solve"]
+
+    log("8. unstructured flagship: relabelled box from a .msh file")
+    paths["unstructured_flagship"], fa_u, warm_u = unstructured_flagship(
+        torch, femx_torch, R_flagship)
+
+    log("9. take_rows against its plain version at the flagship's gathers; timing")
+    tg_rows = tg_kernel_rows(torch, fa_u, peaks[2])
+    del fa_u
+
+    log("10. unstructured bench flow (TG + lattice MG, f32)")
+    ubench = unstructured_bench(torch, femx_torch)
+    paths["unstructured_bench"] = ubench["launches"]
+
+    log("11. small mesh files: TG + block-Jacobi (f64) and dense Cholesky")
+    small = small_mesh_files(torch, femx_torch, R_default)
+    for label, rec in small.items():
+        paths[label] = rec["launches"]
+
+    log("12. examples: repro counterparts and the bench_dyngather sweep")
+    paths["examples"], ex_rows = examples_phase(torch, peaks[2])
+
+    def by_path(key):
+        return {p: int(c.get(key, 0)) for p, c in paths.items()}
 
     kernels = []
     for name, row in rows.items():
+        key = f"{SCM}/{name}"
         kernels.append({
             "name": f"structured_cell_matmul_{'f32' if name == 'float32' else 'f64'}",
             "dtype": name, "route": "cuda",
             "source": "femx_torch/csrc/structured_cell_matmul.cu",
             "replaces": "femx/elements/pallas_structured.py:101",
-            "launches": int(launches.get(name, 0)), **row,
-            "launches_by_path": {
-                "default_case": launches_default.get(name, 0), "flagship": launches.get(name, 0),
-                "bench_f32_solve": bench["launches_f32_solve"].get(name, 0),
-                "bench_refined_solve": bench["launches_refined_solve"].get(name, 0)},
-        })
+            "path": "flagship", "launches": int(paths["flagship"].get(key, 0)), **row,
+            "launches_by_path": by_path(key)})
+    gather_src = "examples/pallas_gather_repros.py"
+    for name, row in tg_rows.items():
+        key = f"take_rows/{name}"
+        kernels.append({
+            "name": f"take_rows_{'f32' if name == 'float32' else 'f64'}",
+            "dtype": name, "route": "cuda", "source": "femx_torch/csrc/take_rows.cu",
+            "replaces": f"{gather_src}:56",
+            "also_replaces": [f"{gather_src}:72", f"{gather_src}:128"],
+            "path": "unstructured_flagship",
+            "launches": int(paths["unstructured_flagship"].get(key, 0)), **row,
+            "launches_by_path": by_path(key)})
+    kernels.append({
+        "name": "take_along_axis", "dtype": "float32", "route": "cuda",
+        "source": "femx_torch/csrc/take_along_axis.cu", "replaces": f"{gather_src}:90",
+        "also_replaces": [f"{gather_src}:108", "examples/bench_dyngather.py:52"],
+        "path": "examples", "launches": int(paths["examples"].get("take_along_axis/float32", 0)),
+        **ex_rows["take_along_axis"], "launches_by_path": by_path("take_along_axis/float32")})
+    mosaic_src = "examples/pallas_mosaic_repros.py"
+    kernels.append({
+        "name": "row_copy", "dtype": "float32", "route": "cuda",
+        "source": "femx_torch/csrc/row_copy.cu", "replaces": f"{mosaic_src}:47",
+        "also_replaces": [f"{mosaic_src}:{n}" for n in (63, 86, 107, 128)],
+        "path": "examples", "launches": int(paths["examples"].get("row_copy/float32", 0)),
+        **ex_rows["row_copy"], "launches_by_path": by_path("row_copy/float32")})
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path ({k['path']})")
     log("end-to-end: " + json.dumps({
         "accurate_solve_run_simulation_s": warm["run_simulation_s"],
         "accurate_solve_solve_s": warm["solve_s"],
         "bench_f32_solve_s": bench["f32_solve_s"], "bench_f32_iters": bench["f32_iters"],
         "bench_refined_solve_s": bench["refined_solve_s"],
-        "bench_refined_inner_iters": bench["refined_inner_iters"]}))
+        "bench_refined_inner_iters": bench["refined_inner_iters"],
+        "unstructured_run_simulation_s": warm_u["run_simulation_s"],
+        "unstructured_solve_s": warm_u["solve_s"],
+        "unstructured_iters": warm_u["iterations"],
+        "unstructured_read_mesh_s": warm_u["read_mesh_s"],
+        "unstructured_bench_f32_solve_s": ubench["f32_solve_s"],
+        "unstructured_bench_f32_iters": ubench["iters"],
+        "unstructured_bench_idle_share": ubench["idle_share"],
+        "mesh_file_default_run_simulation_s": small["mesh_file_default"]["run_simulation_s"],
+        "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

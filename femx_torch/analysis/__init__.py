@@ -1,1 +1,1 @@
-"""Analyses: the structured solid reaction solve."""
+"""Analyses: the solid reaction solve."""

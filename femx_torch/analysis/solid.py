@@ -1,18 +1,33 @@
-"""Solid reaction-force analysis on a structured box Tetra10 mesh (port of
-femx/analysis/solid.py, structured branch).
+"""Solid reaction-force analysis on a Tetra10 mesh (port of
+femx/analysis/solid.py).
 
 Headless equivalent of the reference's `ForceAnalysis`
 (ReactionSolver.py:16-306) with the same constructor contract
-(mesh, force_data, fix_data, E, v), the same pipeline stages and console
-output, and the same outputs (u, reactions at the snapped fix nodes,
-equilibrium check):
+(msh_file, force_data, fix_data, E, v) — a path to a Gmsh .msh file or a
+Mesh — the same pipeline stages and console output, and the same outputs
+(u, reactions at the snapped fix nodes, equilibrium check, negative-detJ
+count). The routes are femx's, by mesh kind and DOF count:
 
-  assemble -> StructuredSolidOperator (gather-free lattice operator whose
-              gather + cell matmul is a hand-written CUDA kernel on the card)
-  solve    -> block-Jacobi PCG up to MG_DOF_THRESHOLD DOFs, StructuredMultigrid
-              PCG above it; with dtype=float32, float64 CG on the operator
-              assembled in float64, preconditioned in float32
-  react    -> r = K u with the unconstrained operator
+  structured box (box_tet10) -> StructuredSolidOperator (its gather + cell
+      matmul is the structured_cell_matmul CUDA kernel on the card);
+      block-Jacobi PCG up to MG_DOF_THRESHOLD DOFs, StructuredMultigrid PCG
+      above it
+  unstructured, > DENSE_DOF_LIMIT DOFs -> SolidOperatorTG (its row gathers
+      are the take_rows CUDA kernel); block-Jacobi PCG, or above
+      MG_DOF_THRESHOLD the LatticePreconditioner (StructuredMultigrid on an
+      auxiliary lattice)
+  up to DENSE_DOF_LIMIT DOFs (or solver="dense") -> dense Cholesky of the
+      assembled K (solver="cg": block-Jacobi PCG on the generic operator)
+
+With dtype=float32 the structured route runs float64 CG on the operator
+assembled in float64, preconditioned in float32 (methods "*_pcg_mixed"):
+femx's float64 refinement against the float32 cell matrix cast up loses
+equilibrium on point-supported boxes. The unstructured route follows femx
+(methods "*_pcg_refined"): float32 CG with float64 refinement against the
+float32 operator cast up, which holds equilibrium there
+(tests/test_torch_f32_witness.py). The small-mesh routes solve in float64
+whatever dtype says. Reactions are r = K u with the unconstrained operator
+in the solution's precision (float64).
 
 Everything runs on `device` (None = CUDA; without CUDA it raises unless the
 caller passes device="cpu"), in `dtype` (None = config.default_dtype(),
@@ -23,29 +38,36 @@ from __future__ import annotations
 
 import os
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from femx_torch import bc as bc_mod
+from femx_torch.assembly import SolidOperator, assemble_dense, dof_map
+from femx_torch.assembly_soa import BlockJacobiPrecond, SolidOperatorSoA
 from femx_torch.assembly_structured import StructuredSolidOperator
+from femx_torch.assembly_tg import SolidOperatorTG
 from femx_torch.config import (DEFAULT_COMPAT, ReferenceCompat, default_dtype,
                                numpy_dtype, resolve_device)
 from femx_torch.elements.tet10 import material_matrix
 from femx_torch.mesh.core import Mesh, nodes_in_physical_group
-from femx_torch.solve.cg import pcg, pcg_mixed
+from femx_torch.mesh.msh_io import read_msh
+from femx_torch.solve.cg import pcg, pcg_mixed, pcg_refined
+from femx_torch.solve.dense import solve_dense
+from femx_torch.solve.lattice_precond import LatticePreconditioner
 from femx_torch.solve.multigrid import StructuredMultigrid
 
 
 class SolidReactionAnalysis:
     """3D solid elasticity with point loads/fixes and reaction recovery."""
 
-    MG_DOF_THRESHOLD = 150_000  # structured meshes above this get MG-PCG
+    DENSE_DOF_LIMIT = 6000  # below: dense Cholesky; above: matrix-free PCG
+    MG_DOF_THRESHOLD = 150_000  # above: multigrid (structured or lattice) PCG
 
     def __init__(
         self,
-        msh_file: Mesh,
+        msh_file: Union[str, Mesh],
         force_data: Sequence[dict],
         fix_data: Sequence[dict],
         E: float,
@@ -57,13 +79,17 @@ class SolidReactionAnalysis:
         verbose: bool = True,
         devices: Optional[int] = None,
         checkpoint: Optional[str] = None,
+        unstructured_operator: Optional[str] = None,
         structured_apply: Optional[str] = None,
         device=None,
     ):
-        if not isinstance(msh_file, Mesh):
+        uop = unstructured_operator or os.environ.get("FEMX_UNSTRUCTURED_OP", "tg")
+        if uop not in ("tg", "cluster", "groupell"):
+            raise ValueError("unstructured_operator must be 'tg', 'cluster' or "
+                             f"'groupell', got {uop!r}")
+        if uop != "tg":
             raise NotImplementedError(
-                "reading a mesh file is not ported yet (ROADMAP A2); pass a "
-                "femx_torch Mesh, e.g. from box_tet10")
+                f"unstructured_operator={uop!r} is not ported yet (ROADMAP A11)")
         if (devices or 0) > 1:
             raise NotImplementedError("devices=N is not ported yet (ROADMAP A15)")
         if checkpoint is not None:
@@ -72,9 +98,8 @@ class SolidReactionAnalysis:
             raise NotImplementedError(
                 f"structured_apply={structured_apply!r} is not ported yet "
                 "(ROADMAP A14)")
-        if solver not in ("auto", "mg", "cg"):
-            raise NotImplementedError(
-                f"solver={solver!r} is not ported yet (ROADMAP A5)")
+        if solver not in ("auto", "mg", "cg", "dense"):
+            raise ValueError(f"solver must be 'auto', 'mg', 'cg' or 'dense', got {solver!r}")
         self.device = resolve_device(device)
         self.msh_file = msh_file
         self.force_data = list(force_data)
@@ -86,6 +111,7 @@ class SolidReactionAnalysis:
         self.solver = solver
         self.cg_tol = cg_tol
         self.verbose = verbose
+        self.unstructured_operator = uop
         self.structured_apply = "slot"
 
         self.pd = 3
@@ -95,7 +121,7 @@ class SolidReactionAnalysis:
         self.fixed_nodes_info: List[dict] = []
         self.applied_forces_info: List[dict] = []
         self.negative_detJ_count = 0
-        self.operator: Optional[StructuredSolidOperator] = None
+        self.operator = None
         self.solve_info: dict = {}
         self.stage_times: dict = {}
 
@@ -109,17 +135,12 @@ class SolidReactionAnalysis:
     def _read_mesh(self) -> None:
         self._log("1. Reading mesh file...")
         t0 = time.perf_counter()
-        self.mesh = self.msh_file
+        self.mesh = self.msh_file if isinstance(self.msh_file, Mesh) else read_msh(self.msh_file)
         self.points = self.mesh.points
         self.num_nodes = len(self.points)
         self.tetra10_conn = self.mesh.cells.get("tetra10")
         if self.tetra10_conn is None:
             raise ValueError("Mesh has no 'tetra10' elements.")
-        if self.mesh.structured is None:
-            raise NotImplementedError(
-                "unstructured meshes are not ported yet (ROADMAP A5/A11); "
-                "build the box with box_tet10 (embed_points=False keeps "
-                "off-lattice BC points on the lattice)")
         self.diri_nodes = nodes_in_physical_group(self.mesh, "Diri_BCs", "vertex")
         self.neumann_nodes = nodes_in_physical_group(self.mesh, "Neumann_BCs", "vertex")
         self.stage_times["read_mesh"] = time.perf_counter() - t0
@@ -130,15 +151,33 @@ class SolidReactionAnalysis:
         return self.compat.tet10_gauss_weight
 
     def assemble_stiffness_matrix(self) -> None:
-        """Build the gather-free lattice operator. Structured cells are
-        affine images of the unit Kuhn subdivision: every Jacobian is
-        positive by construction."""
+        """Build the matrix-free operator (and count bad Jacobians).
+
+        Structured box meshes get the gather-free lattice operator (its
+        cells are affine images of the unit Kuhn subdivision: every Jacobian
+        is positive by construction); large unstructured meshes the
+        transpose-gather operator        in the analysis dtype (femx's); small ones the generic float64
+        operator."""
         self._log("2. Assembling global stiffness operator (matrix-free)...")
         t0 = time.perf_counter()
-        self.operator = StructuredSolidOperator.from_mesh(
-            self.mesh, self.E, self.v, weight=self.weight,
-            dtype=self.dtype or numpy_dtype(default_dtype()), device=self.device)
-        self.negative_detJ_count = 0
+        dtype = np.dtype(self.dtype or numpy_dtype(default_dtype()))
+        self._structured = self.mesh.structured is not None and self.solver != "dense"
+        if self._structured:
+            self.operator = StructuredSolidOperator.from_mesh(
+                self.mesh, self.E, self.v, weight=self.weight, dtype=dtype,
+                device=self.device)
+            self.negative_detJ_count = 0
+        else:
+            if self.solver != "dense" and 3 * self.num_nodes > self.DENSE_DOF_LIMIT:
+                op, detJ = SolidOperatorTG.from_mesh(
+                    self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
+                    dtype=dtype, device=self.device)
+            else:
+                op, detJ = SolidOperator.from_mesh(
+                    self.points, self.tetra10_conn, self.C, weight=self.weight,
+                    dtype=np.float64, device=self.device)
+            self.operator = op
+            self.negative_detJ_count = int((detJ <= 1e-12).sum())
         self.stage_times["assemble"] = time.perf_counter() - t0
         self._log("   - Assembly complete.")
 
@@ -162,6 +201,14 @@ class SolidReactionAnalysis:
     def solve(self) -> None:
         self._log("4. Solving the linear system...")
         t0 = time.perf_counter()
+        if not self._structured:
+            if isinstance(self.operator, SolidOperatorTG):
+                self._solve_tg(t0)
+            else:
+                self._solve_small()
+            self._log("   - System solved.")
+            self.stage_times["solve"] = time.perf_counter() - t0
+            return
         ndof = 3 * self.num_nodes
         info = self.mesh.structured
         dtype = self.operator.dtype
@@ -236,6 +283,89 @@ class SolidReactionAnalysis:
         self._log("   - System solved.")
         self.reaction_forces = op.to_global(r_host)
         self.stage_times["solve"] = time.perf_counter() - t0
+
+    def _solve_tg(self, t0: float) -> None:
+        """The unstructured transpose-gather route (femx/analysis/solid.py:
+        640-767): block-Jacobi PCG, or the lattice-MG preconditioner above
+        MG_DOF_THRESHOLD DOFs; float32 runs femx's float32 CG with float64
+        refinement against the operator cast up."""
+        mask_g = self.constraints.free_mask()
+        op = self.operator.with_free_mask(self.operator.to_internal(mask_g))
+        self.operator = op
+        f64_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=self.device)
+        t_pre = time.perf_counter()
+        bj_data = op.soa.block_jacobi_tensors()
+        precond = None
+        prefix = "tg_block_jacobi"
+        if 3 * self.num_nodes > self.MG_DOF_THRESHOLD:
+            # auxiliary structured-lattice MG coarse correction: cuts
+            # block-Jacobi's O(1000) iterations by an order of magnitude
+            try:
+                precond = LatticePreconditioner(
+                    self.points, self.tetra10_conn, self.E, self.v, mask_g,
+                    dtype=numpy_dtype(op.dtype).type, node_perm=op.new_of_old,
+                    bj_fn=SolidOperatorSoA.apply_block_jacobi, bj_data=bj_data,
+                    device=self.device)
+                prefix = "tg_lattice_mg"
+            except ValueError as e:
+                self._log(f"   - Lattice preconditioner unavailable ({e}); "
+                          "using block-Jacobi.")
+        if precond is None:
+            precond = BlockJacobiPrecond(bj_data)
+        self._precond = precond
+        t_pre = time.perf_counter() - t_pre
+        self._op64 = op.astype(np.float64)
+        if op.dtype == torch.float32:
+            # f32 inner solves + adaptive, guarded f64 refinement to a true
+            # residual <= cg_tol against the f32 operator cast up (femx's
+            # scheme; on this operator the cast keeps equilibrium)
+            res = pcg_refined(op.apply_constrained, f64_int.float(), M_inv_diag=precond,
+                              tol=max(self.cg_tol, 1e-5), refine_steps=8,
+                              A_residual=self._op64.apply_constrained, b_residual=f64_int,
+                              outer_tol=self.cg_tol)
+            method = prefix + "_pcg_refined"
+        else:
+            res = pcg(op.apply_constrained, f64_int, M_inv_diag=precond, tol=self.cg_tol,
+                      maxiter=10000)
+            method = prefix + "_pcg"
+        self.solve_info = {
+            "method": method,
+            "iterations": int(res.iterations),
+            "residual": float(res.residual_norm),
+            "converged": bool(res.converged),
+            "precond_setup_s": round(t_pre, 3),
+            "solve_s": round(time.perf_counter() - t0 - t_pre, 3),
+            "structured_apply": self.structured_apply,
+        }
+        self.u = op.to_global(res.x.cpu().numpy())
+        self.reaction_forces = op.to_global(self._op64.apply(res.x).cpu().numpy())
+
+    def _solve_small(self) -> None:
+        """The generic-operator route (femx/analysis/solid.py:769-796):
+        dense Cholesky of the assembled K up to DENSE_DOF_LIMIT DOFs (or
+        solver="dense"), else block-Jacobi PCG; both in float64."""
+        ndof = 3 * self.num_nodes
+        op = self.operator.with_free_mask(self.constraints.free_mask())
+        self.operator = op
+        f = torch.as_tensor(self.f, dtype=op.dtype, device=self.device)
+        if self.solver == "dense" or (self.solver == "auto" and ndof <= self.DENSE_DOF_LIMIT):
+            K = assemble_dense(op.element_stiffness(), dof_map(op.conn, 3), ndof)
+            u = solve_dense(K, f, free_mask=op.free_mask)
+            self.solve_info = {"method": "dense_cholesky"}
+        else:
+            precond = op.block_jacobi_preconditioner()
+            self._precond = precond
+            res = pcg(op.apply_constrained, f * op.free_mask, M_inv_diag=precond,
+                      tol=self.cg_tol)
+            u = res.x
+            self.solve_info = {
+                "method": "block_jacobi_pcg",
+                "iterations": int(res.iterations),
+                "residual": float(res.residual_norm),
+                "converged": bool(res.converged),
+            }
+        self.u = u.cpu().numpy()
+        self.reaction_forces = op.apply(u).cpu().numpy()
 
     def print_reactions(self) -> None:
         """Console reaction table + equilibrium check

@@ -1,1 +1,2 @@
-"""Element constants and the structured cell-matmul kernel wrapper."""
+"""Tet10 element kernels (einsum and element-last layouts) and the
+structured cell-matmul kernel wrapper."""

@@ -1,14 +1,20 @@
-"""Tetra10 element constants (host numpy).
+"""Tetra10 solid elasticity element (port of femx/elements/tet10.py).
 
-The part of femx.elements.tet10 that the structured cell stiffness and the
-solid analysis need: the reference's 4-point Gauss rule
+Host numpy constants — the reference's 4-point Gauss rule
 (ReactionSolver.py:120-123), the natural-coordinate shape gradients, the
-Voigt selector and the isotropic material matrix.
+Voigt selector and the isotropic material matrix — and the batched element
+kernels as torch einsums on the caller's device:
+
+  Ke[(i,c),(j,d)] = sum_g w*detJ_g * dN_g[k,i] * Chat[c,k,d,l] * dN_g[l,j]
+  with Chat[c,k,d,l] = Sel[a,c,k] C[a,b] Sel[b,d,l]
+
+The mass and stress terms of femx's module wait for the modal slice.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # 4-point Gauss rule on the reference tetrahedron.
 _A, _B = 0.5854101966249685, 0.1381966011250105
@@ -64,3 +70,76 @@ def material_matrix(E, v) -> np.ndarray:
     np.fill_diagonal(C[:3, :3], 1 - v_)
     C[3, 3] = C[4, 4] = C[5, 5] = (1 - 2 * v_) / 2
     return c1 * C
+
+
+def _const(a, like: torch.Tensor) -> torch.Tensor:
+    """Host constant (or tensor) in `like`'s dtype on its device."""
+    return torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a,
+                           dtype=like.dtype, device=like.device)
+
+
+def chat_tensor(C: torch.Tensor) -> torch.Tensor:
+    """Chat[c,k,d,l] = Sel[a,c,k] C[a,b] Sel[b,d,l] (3,3,3,3)."""
+    sel = _const(_SEL, C)
+    return torch.einsum("ack,ab,bdl->ckdl", sel, C, sel)
+
+
+def _inv3x3(J: torch.Tensor):
+    """Closed-form batched 3x3 inverse and determinant by cofactors.
+    Returns (Jinv, detJ) for J of shape (..., 3, 3); a zero determinant
+    divides by 1 instead."""
+    a, b, c = J[..., 0, :], J[..., 1, :], J[..., 2, :]
+    cb = torch.linalg.cross(b, c)
+    ca = torch.linalg.cross(c, a)
+    ab = torch.linalg.cross(a, b)
+    det = (a * cb).sum(-1)
+    inv_cols = torch.stack([cb, ca, ab], dim=-1)  # (..., 3, 3): columns
+    safe = torch.where(det.abs() > 1e-300, det, torch.ones_like(det))
+    return inv_cols / safe[..., None, None], det
+
+
+def jacobians(coords: torch.Tensor):
+    """Per-element, per-Gauss-point Jacobian data.
+
+    Args:
+      coords: (E, 10, 3) element node coordinates.
+    Returns:
+      dN_glob: (E, 4, 3, 10) global shape-function gradients.
+      wdet:    (E, 4) w-free quadrature factor detJ, zeroed where
+               detJ <= 1e-12 (the reference skips and counts such points,
+               ReactionSolver.py:133-135).
+      detJ:    (E, 4) raw determinants.
+    """
+    dn = _const(DN_NATURAL, coords)
+    J = torch.einsum("gkn,enc->egkc", dn, coords)
+    Jinv, detJ = _inv3x3(J)
+    dN_glob = torch.einsum("egkc,gcn->egkn", Jinv, dn)
+    ok = detJ > 1e-12
+    wdet = torch.where(ok, detJ, torch.zeros_like(detJ))
+    dN_glob = torch.where(ok[..., None, None], dN_glob, torch.zeros_like(dN_glob))
+    return dN_glob, wdet, detJ
+
+
+def element_stiffness(coords: torch.Tensor, C, weight=GAUSS_WEIGHT_CORRECT):
+    """Batched Tet10 stiffness matrices.
+
+    Returns Ke (E, 30, 30) in node-major / xyz-minor DOF order and the count
+    of skipped integration points (detJ <= 1e-12)."""
+    dN, wdet, detJ = jacobians(coords)
+    chat = chat_tensor(_const(C, coords))
+    ke = torch.einsum("egki,ckdl,eglj,eg->eicjd", dN, chat, dN, weight * wdet)
+    return ke.reshape(coords.shape[0], 30, 30), int((detJ <= 1e-12).sum())
+
+
+def element_apply(dN, wdet, C, ue, weight=GAUSS_WEIGHT_CORRECT):
+    """Matrix-free element action fe = Ke @ ue without forming Ke: strains
+    at the Gauss points, stress via C, the transposed-B contraction.
+
+    dN (E, 4, 3, 10), wdet (E, 4), C (6, 6), ue (E, 10, 3) -> fe (E, 10, 3).
+    """
+    sel = _const(_SEL, ue)
+    C = _const(C, ue)
+    grad = torch.einsum("egkn,enc->egkc", dN, ue)
+    strain = torch.einsum("ack,egkc->ega", sel, grad)
+    stress = torch.einsum("ab,egb->ega", C, strain)
+    return torch.einsum("egkn,ack,ega,eg->enc", dN, sel, stress, weight * wdet)

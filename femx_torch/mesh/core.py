@@ -26,6 +26,7 @@ GMSH_TYPE_TO_NAME: Dict[int, Tuple[str, int]] = {
     5: ("hexahedron", 8),
     6: ("wedge", 6),
 }
+NAME_TO_GMSH_TYPE: Dict[str, int] = {v[0]: k for k, v in GMSH_TYPE_TO_NAME.items()}
 NODES_PER_CELL: Dict[str, int] = {v[0]: v[1] for v in GMSH_TYPE_TO_NAME.values()}
 
 
@@ -52,6 +53,18 @@ class Mesh:
     @property
     def num_nodes(self) -> int:
         return len(self.points)
+
+    # meshio-compatible aliases (femx/mesh/core.py:63-72)
+    @property
+    def cells_dict(self) -> Dict[str, np.ndarray]:
+        return self.cells
+
+    @property
+    def cell_data_dict(self) -> Dict[str, Dict[str, np.ndarray]]:
+        return {"gmsh:physical": self.cell_physical}
+
+    def physical_names(self) -> Dict[str, Tuple[int, int]]:
+        return dict(self.field_data)
 
     def validate(self) -> None:
         if self.points.ndim != 2 or self.points.shape[1] != 3:
@@ -101,3 +114,17 @@ def nearest_node(points: np.ndarray, pos, candidates: Optional[np.ndarray] = Non
         return int(candidates[int(np.argmin(d))])
     d = np.linalg.norm(points - pos, axis=1)
     return int(np.argmin(d))
+
+
+def relabel_nodes(mesh: Mesh, new_of_old: np.ndarray) -> Mesh:
+    """The same mesh with node i renamed new_of_old[i] (a permutation):
+    points move to their new slots and every cell block is renamed. The
+    result carries no structured-lattice metadata (bench.py:228-236 scrambles
+    the flagship this way so the unstructured path must take it)."""
+    new_of_old = np.asarray(new_of_old)
+    points = np.empty_like(mesh.points)
+    points[new_of_old] = mesh.points
+    return Mesh(points=points,
+                cells={k: new_of_old[c].astype(np.int32) for k, c in mesh.cells.items()},
+                cell_physical={k: v.copy() for k, v in mesh.cell_physical.items()},
+                field_data=dict(mesh.field_data))

@@ -1,1 +1,2 @@
-"""Iterative solvers: PCG, mixed-precision refinement, structured multigrid."""
+"""Solvers: PCG and FCG, mixed-precision refinement, dense Cholesky, structured
+multigrid and the lattice-multigrid preconditioner of unstructured meshes."""

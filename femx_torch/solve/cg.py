@@ -82,6 +82,54 @@ def pcg(
     return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol)
 
 
+def fcg(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    M_inv=None,
+    x0: Optional[torch.Tensor] = None,
+    tol: float = 1e-8,
+    maxiter: int = 10000,
+) -> CGResult:
+    """Flexible preconditioned CG (Notay's FCG(1), femx.solve.cg.fcg):
+    pcg with the Polak-Ribiere beta = (z, r - r_prev) / (z_prev, r_prev),
+    which stays convergent when M^-1 varies between iterations or is mildly
+    nonsymmetric (the one-sided multiplicative lattice preconditioner,
+    mode="mult"). Same operator and preconditioner calls as pcg, one extra
+    dot product per iteration."""
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    Minv = _as_precond(M_inv)
+
+    bnorm = torch.sqrt(torch.dot(b, b))
+    bnorm_safe = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    atol2 = (tol * bnorm_safe) ** 2
+
+    r = b - A(x)
+    z = Minv(r)
+    p = z
+    rz = torch.dot(r, z)
+    k = 0
+    while k < maxiter:
+        rr = torch.dot(r, r)
+        go = torch.isfinite(rr) & (rz > 0) & (rr > atol2)
+        if not bool(go):
+            break
+        Ap = A(p)
+        pAp = torch.dot(p, Ap)
+        pos = pAp > 0
+        alpha = torch.where(pos, rz / torch.where(pos, pAp, torch.ones_like(pAp)),
+                            torch.zeros_like(pAp))
+        x = x + alpha * p
+        r_new = r + (-alpha) * Ap
+        z = Minv(r_new)
+        rz_new = torch.dot(r_new, z)
+        beta = torch.where(rz > 0, (rz_new - torch.dot(r, z)) / rz, torch.zeros_like(rz))
+        p = z + beta * p
+        r, rz = r_new, rz_new
+        k += 1
+    res = float(torch.sqrt(torch.dot(r, r)) / bnorm_safe)
+    return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol)
+
+
 def pcg_refined(
     A: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,

@@ -1,5 +1,7 @@
-"""femx_torch on a CUDA card: the hand-written kernel against its plain
-version, the structured apply and a small solve against the same run on
+"""femx_torch on a CUDA card: each hand-written kernel against its plain
+version (structured_cell_matmul within a tolerance; take_rows,
+take_along_axis and row_copy exactly), the example repros, and the
+structured and transpose-gather applies and solves against the same runs on
 the CPU. Every test here carries the `cuda` marker and skips without a card.
 
 This file imports neither jax nor femx, so it also runs on a GPU machine
@@ -13,8 +15,12 @@ import pytest
 import torch
 
 import femx_torch
+from femx_torch import gather
 from femx_torch.assembly_structured import StructuredSolidOperator
+from femx_torch.assembly_tg import SolidOperatorTG
 from femx_torch.elements import cell_matmul as cm
+from femx_torch.examples import gather_repros, mosaic_repros
+from femx_torch.mesh import relabel_nodes, write_msh
 
 torch.set_num_threads(2)
 
@@ -89,6 +95,125 @@ def test_solve_matches_cpu(cuda, dtype, solver):
                                              device=d).run_simulation()
             for d in ("cpu", "cuda")]
     assert all(r.solve_info["converged"] for r in runs)
+    R = [r.reaction_forces for r in runs]
+    np.testing.assert_allclose(R[1], R[0], rtol=1e-7, atol=np.abs(R[0]).max() * 1e-8)
+    np.testing.assert_allclose(runs[1].equilibrium_residual(), 0.0, atol=1e-6)
+
+
+# -- the data-movement kernels (csrc/take_rows.cu, take_along_axis.cu,
+# row_copy.cu): pure copies, so the kernel must equal its plain version
+# exactly ------------------------------------------------------------------
+
+def _counted(key):
+    before = gather.LAUNCHES[key]
+    return lambda: gather.LAUNCHES[key] - before
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape,width", [((10, 4000), 3), ((8, 128), 128), ((8, 128), 0),
+                                         ((5,), 3), ((1, 0), 3)])
+def test_take_rows_matches_plain(cuda, dtype, shape, width):
+    rng = np.random.default_rng(0)
+    tab_np = rng.standard_normal((1000, width) if width else (1000,)).astype(dtype)
+    idx_np = rng.integers(0, 1000, size=shape)
+    tab = torch.as_tensor(tab_np, device=cuda)
+    idx = gather.index_tensor(idx_np, 1000, cuda)
+    assert idx.dtype == torch.int32
+    n = _counted(f"take_rows/{np.dtype(dtype).name}")
+    got = gather.take_rows(tab, idx)
+    torch.cuda.synchronize()
+    assert n() == (1 if got.numel() else 0)
+    assert got.shape == (*shape, *tab_np.shape[1:])
+    np.testing.assert_array_equal(got.cpu().numpy(), tab_np[idx_np])
+    torch.testing.assert_close(got, gather.take_rows_plain(tab, idx), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("axis,tab_shape,idx_shape", [(0, (512, 128), (8, 128)),
+                                                      (0, (8, 128), (4096, 128)),
+                                                      (1, (8, 128), (8, 128)),
+                                                      (1, (6, 50), (6, 7))])
+def test_take_along_axis_matches_plain(cuda, dtype, axis, tab_shape, idx_shape):
+    rng = np.random.default_rng(1)
+    tab_np = rng.standard_normal(tab_shape).astype(dtype)
+    idx_np = rng.integers(0, tab_shape[axis], size=idx_shape)
+    tab = torch.as_tensor(tab_np, device=cuda)
+    idx = gather.index_tensor(idx_np, tab_shape[axis], cuda)
+    n = _counted(f"take_along_axis/{np.dtype(dtype).name}")
+    got = gather.take_along_axis(tab, idx, axis)
+    torch.cuda.synchronize()
+    assert n() == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), np.take_along_axis(tab_np, idx_np, axis))
+    torch.testing.assert_close(got, gather.take_along_axis_plain(tab, idx, axis),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("rows,row0,n_rows,scale", [(16, 4, 8, 1.0), (8, 0, 8, 2.0),
+                                                    (1000, 17, 900, -0.5)])
+def test_row_copy_matches_plain(cuda, dtype, rows, row0, n_rows, scale):
+    x_np = np.random.default_rng(2).standard_normal((rows, 130)).astype(dtype)
+    x = torch.as_tensor(x_np, device=cuda)
+    r0 = torch.tensor([row0], dtype=torch.int32, device=cuda)
+    n = _counted(f"row_copy/{np.dtype(dtype).name}")
+    got = gather.row_copy(x, r0, n_rows, scale)
+    torch.cuda.synchronize()
+    assert n() == 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  (scale * x_np[row0:row0 + n_rows]).astype(dtype))
+    torch.testing.assert_close(got, gather.row_copy_plain(x, r0, n_rows, scale), rtol=0, atol=0)
+
+
+def test_wrappers_refuse_int64_indices_on_the_card(cuda):
+    tab = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        gather.take_rows(tab, torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("module", [mosaic_repros, gather_repros])
+def test_repros_on_the_card(cuda, module):
+    for name, fn in module.REPROS.items():
+        np.testing.assert_array_equal(fn().cpu().numpy(), module.expected(name), err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+def test_tg_apply_matches_cpu(cuda, dtype, rtol):
+    """The transpose-gather apply on the card (take_rows kernel) against
+    the same operator on the CPU (plain gathers)."""
+    mesh = femx_torch.box_tet10(0.3, 0.2, 0.4, 0.05)
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    ops = [SolidOperatorTG.from_mesh(mesh.points, mesh.cells["tetra10"], 2e11, 0.3,
+                                     dtype=dtype, device=d)[0] for d in ("cpu", cuda)]
+    mask = (np.random.default_rng(1).random(ops[0].ndof) > 0.1).astype(np.float64)
+    ops = [op.with_free_mask(op.to_internal(mask)) for op in ops]
+    u = np.random.default_rng(2).standard_normal(ops[0].ndof).astype(dtype)
+    n = _counted(f"take_rows/{np.dtype(dtype).name}")
+    got = ops[1].apply_constrained(torch.as_tensor(u, device=cuda)).cpu().numpy()
+    assert n() == ops[1].gathers_per_apply
+    want = ops[0].apply_constrained(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=np.abs(want).max() * rtol)
+
+
+def test_unstructured_solve_matches_cpu(cuda, tmp_path):
+    """A relabelled box read from a .msh file through the TG + lattice-MG
+    route (threshold lowered) on the card and on the CPU."""
+    corners = [(x, 0.0, z) for x in (0, 0.2) for z in (0, 0.6)]
+    mesh = femx_torch.box_tet10(0.2, 0.2, 0.6, 0.05, force_points=[(0.1, 0.2, 0.3)],
+                                fix_points=corners)
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    path = tmp_path / "box.msh"
+    write_msh(path, mesh)
+    force = [{"force_x": 0, "force_y": 3000.0, "force_z": 0, "force_x_pstn": 0.1,
+              "force_y_pstn": 0.2, "force_z_pstn": 0.3}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in corners]
+    runs = []
+    for d in ("cpu", "cuda"):
+        fa = femx_torch.SolidReactionAnalysis(str(path), force, fix, E=2e11, v=0.3,
+                                              cg_tol=1e-10, verbose=False, device=d)
+        fa.MG_DOF_THRESHOLD = 6000
+        runs.append(fa.run_simulation())
+    assert [r.solve_info["method"] for r in runs] == ["tg_lattice_mg_pcg"] * 2
     R = [r.reaction_forces for r in runs]
     np.testing.assert_allclose(R[1], R[0], rtol=1e-7, atol=np.abs(R[0]).max() * 1e-8)
     np.testing.assert_allclose(runs[1].equilibrium_residual(), 0.0, atol=1e-6)

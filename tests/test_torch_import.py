@@ -57,6 +57,25 @@ print("OK", fa.solve_info["iterations"])
     assert p.stdout.startswith("OK")
 
 
+def test_every_module_imports_with_jax_and_femx_blocked():
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["femx"] = None
+import femx_torch
+names = [m.name for m in pkgutil.walk_packages(femx_torch.__path__, "femx_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names), " ".join(sorted(names)))
+"""
+    p = _run(code)
+    assert p.returncode == 0, p.stdout + p.stderr
+    count, *names = p.stdout.split()
+    expected = {str(f.relative_to(REPO).with_suffix("")).replace("/", ".")
+                for f in (REPO / "femx_torch").rglob("*.py") if f.name != "__init__.py"}
+    assert expected <= set(names) and int(count) == len(names)
+
+
 def test_no_cuda_means_raise_not_fallback():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")

@@ -212,7 +212,7 @@ def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schem
     (dict(devices=2), "A15"),
     (dict(checkpoint="state.npz"), "A9"),
     (dict(structured_apply="conv"), "A14"),
-    (dict(solver="dense"), "A5"),
+    (dict(unstructured_operator="cluster"), "A11"),
 ])
 def test_unported_options_raise(kw, item):
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
@@ -221,17 +221,29 @@ def test_unported_options_raise(kw, item):
                                          device="cpu", **kw)
 
 
-def test_unported_inputs_raise():
-    with pytest.raises(NotImplementedError, match="A2"):
-        femx_torch.SolidReactionAnalysis("generated_mesh.msh", [], [], E=E, v=NU,
-                                         verbose=False, device="cpu")
-    # an embedded off-lattice point makes the mesh unstructured
-    mesh = femx_torch.box_tet10(0.5, 0.3, 0.4, 0.1, fix_points=[(0.0, 0.013, 0.0)])
-    assert mesh.structured is None
-    with pytest.raises(NotImplementedError, match="A5/A11"):
+def test_unported_inputs_raise(tmp_path):
+    """Mesh files and unstructured meshes are ported; the group-ELL operator,
+    a bad operator or solver name, a mesh without tets and reports are not."""
+    mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
+    with pytest.raises(NotImplementedError, match="A11"):
         femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                         device="cpu", unstructured_operator="groupell")
+    for bad in (dict(unstructured_operator="bcsr"), dict(solver="lu")):
+        with pytest.raises(ValueError):
+            femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                             device="cpu", **bad)
+    lines = femx_torch.Mesh(points=np.zeros((2, 3)), cells={"line": np.array([[0, 1]])})
+    with pytest.raises(ValueError, match="tetra10"):
+        femx_torch.SolidReactionAnalysis(lines, [], [], E=E, v=NU, verbose=False,
                                          device="cpu")
-    fa = femx_torch.SolidReactionAnalysis(femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05),
-                                          [], [], E=E, v=NU, verbose=False, device="cpu")
+    # an embedded off-lattice point makes the mesh unstructured: it now solves
+    # through the unstructured routes, read back from a .msh file as well
+    off = femx_torch.box_tet10(0.5, 0.3, 0.4, 0.1, fix_points=[(0.0, 0.013, 0.0)])
+    assert off.structured is None
+    path = tmp_path / "off.msh"
+    femx_torch.mesh.write_msh(str(path), off)
+    fa = femx_torch.SolidReactionAnalysis(str(path), [], [], E=E, v=NU, verbose=False,
+                                          device="cpu")
+    assert fa.mesh.structured is None and fa.num_nodes == off.num_nodes
     with pytest.raises(NotImplementedError, match="A16"):
         fa.run_simulation(report=True)
