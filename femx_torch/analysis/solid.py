@@ -19,15 +19,15 @@ count). The routes are femx's, by mesh kind and DOF count:
   up to DENSE_DOF_LIMIT DOFs (or solver="dense") -> dense Cholesky of the
       assembled K (solver="cg": block-Jacobi PCG on the generic operator)
 
-With dtype=float32 the structured route runs float64 CG on the operator
-assembled in float64, preconditioned in float32 (methods "*_pcg_mixed"):
-femx's float64 refinement against the float32 cell matrix cast up loses
-equilibrium on point-supported boxes. The unstructured route follows femx
-(methods "*_pcg_refined"): float32 CG with float64 refinement against the
-float32 operator cast up, which holds equilibrium there
-(tests/test_torch_f32_witness.py). The small-mesh routes solve in float64
-whatever dtype says. Reactions are r = K u with the unconstrained operator
-in the solution's precision (float64).
+With dtype=float32 the structured and transpose-gather routes run float64
+CG on the operator assembled in float64 from the mesh, preconditioned in
+float32 (methods "*_pcg_mixed"). femx instead refines in float64 against
+the float32 operator cast up, which carries the float32-rounded geometry
+into the solution: on point-supported boxes it misses the equilibrium of
+the float64 operator (tests/test_torch_solid.py,
+tests/test_torch_f32_witness.py). The small-mesh routes solve in float64
+whatever dtype says. Reactions are r = K u with the unconstrained float64
+operator.
 
 Everything runs on `device` (None = CUDA; without CUDA it raises unless the
 caller passes device="cpu"), in `dtype` (None = config.default_dtype(),
@@ -53,7 +53,7 @@ from femx_torch.config import (DEFAULT_COMPAT, ReferenceCompat, default_dtype,
 from femx_torch.elements.tet10 import material_matrix
 from femx_torch.mesh.core import Mesh, nodes_in_physical_group
 from femx_torch.mesh.msh_io import read_msh
-from femx_torch.solve.cg import pcg, pcg_mixed, pcg_refined
+from femx_torch.solve.cg import pcg, pcg_mixed
 from femx_torch.solve.dense import solve_dense
 from femx_torch.solve.lattice_precond import LatticePreconditioner
 from femx_torch.solve.multigrid import StructuredMultigrid
@@ -156,8 +156,8 @@ class SolidReactionAnalysis:
         Structured box meshes get the gather-free lattice operator (its
         cells are affine images of the unit Kuhn subdivision: every Jacobian
         is positive by construction); large unstructured meshes the
-        transpose-gather operator        in the analysis dtype (femx's); small ones the generic float64
-        operator."""
+        transpose-gather operator in the analysis dtype (femx's); small ones
+        the generic float64 operator."""
         self._log("2. Assembling global stiffness operator (matrix-free)...")
         t0 = time.perf_counter()
         dtype = np.dtype(self.dtype or numpy_dtype(default_dtype()))
@@ -287,10 +287,11 @@ class SolidReactionAnalysis:
     def _solve_tg(self, t0: float) -> None:
         """The unstructured transpose-gather route (femx/analysis/solid.py:
         640-767): block-Jacobi PCG, or the lattice-MG preconditioner above
-        MG_DOF_THRESHOLD DOFs; float32 runs femx's float32 CG with float64
-        refinement against the operator cast up."""
+        MG_DOF_THRESHOLD DOFs; float32 runs float64 CG preconditioned in
+        float32, as the structured route does."""
         mask_g = self.constraints.free_mask()
-        op = self.operator.with_free_mask(self.operator.to_internal(mask_g))
+        m_int = self.operator.to_internal(mask_g)
+        op = self.operator.with_free_mask(m_int)
         self.operator = op
         f64_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=self.device)
         t_pre = time.perf_counter()
@@ -314,17 +315,21 @@ class SolidReactionAnalysis:
             precond = BlockJacobiPrecond(bj_data)
         self._precond = precond
         t_pre = time.perf_counter() - t_pre
-        self._op64 = op.astype(np.float64)
         if op.dtype == torch.float32:
-            # f32 inner solves + adaptive, guarded f64 refinement to a true
-            # residual <= cg_tol against the f32 operator cast up (femx's
-            # scheme; on this operator the cast keeps equilibrium)
-            res = pcg_refined(op.apply_constrained, f64_int.float(), M_inv_diag=precond,
-                              tol=max(self.cg_tol, 1e-5), refine_steps=8,
-                              A_residual=self._op64.apply_constrained, b_residual=f64_int,
-                              outer_tol=self.cg_tol)
-            method = prefix + "_pcg_refined"
+            # f64 CG on the TG operator assembled in f64 from the mesh,
+            # preconditioned in f32. femx refines against op.astype(float64)
+            # (femx/analysis/solid.py:722), whose f32-rounded geometry factors
+            # move the solution off the f64 operator's equilibrium
+            # (tests/test_torch_f32_witness.py).
+            op64, _ = SolidOperatorTG.from_mesh(
+                self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
+                dtype=np.float64, device=self.device)
+            op64 = op64.with_free_mask(m_int)
+            res = pcg_mixed(op64.apply_constrained, f64_int, precond, tol=self.cg_tol,
+                            maxiter=10000)
+            method = prefix + "_pcg_mixed"
         else:
+            op64 = op
             res = pcg(op.apply_constrained, f64_int, M_inv_diag=precond, tol=self.cg_tol,
                       maxiter=10000)
             method = prefix + "_pcg"
@@ -338,7 +343,7 @@ class SolidReactionAnalysis:
             "structured_apply": self.structured_apply,
         }
         self.u = op.to_global(res.x.cpu().numpy())
-        self.reaction_forces = op.to_global(self._op64.apply(res.x).cpu().numpy())
+        self.reaction_forces = op.to_global(op64.apply(res.x).cpu().numpy())
 
     def _solve_small(self) -> None:
         """The generic-operator route (femx/analysis/solid.py:769-796):

@@ -89,6 +89,21 @@ def test_f64_routes_match_femx(request, method):
     assert np.abs(pt.equilibrium_residual()).max() <= 1e-6 * 3000.0
 
 
+@pytest.mark.parametrize("method,threshold", [("tg_block_jacobi_pcg_mixed", None),
+                                              ("tg_lattice_mg_pcg_mixed", 6000)])
+def test_f32_routes_reach_the_f64_reactions(medium, method, threshold):
+    """dtype=float32 on the TG routes: float64 CG on the float64-assembled
+    operator, preconditioned in float32, reaches femx's float64 reactions."""
+    fx = _run(femx, medium, threshold)
+    pt = _run(femx_torch, medium, threshold, dtype=np.float32, cg_tol=1e-8)
+    assert pt.operator.dtype == torch.float32
+    assert pt.solve_info["method"] == method and pt.solve_info["converged"]
+    assert set(pt.solve_info) == set(fx.solve_info)
+    R = fx.reaction_forces
+    np.testing.assert_allclose(pt.reaction_forces, R, rtol=1e-6, atol=np.abs(R).max() * 1e-6)
+    assert np.abs(pt.equilibrium_residual()).max() <= 1e-6 * 3000.0
+
+
 def test_structured_mesh_with_solver_dense_takes_the_dense_route():
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05, force_points=[(0.2, 0.05, 0.05)],
                                 fix_points=[(0, 0, 0), (0, 0.1, 0), (0, 0, 0.1), (0, 0.1, 0.1)])
