@@ -9,10 +9,15 @@ Phases (any failure ends the run with a nonzero exit code):
   1. device   — nvidia-smi's name and power limit, torch's device name;
   2. build    — nvcc builds every kernel under femx_torch/csrc;
   3. kernels  — structured_cell_matmul against its plain PyTorch version on
-                the card, float32 and float64, at the flagship shape
-                (24, 24, 96) and an odd small one (5, 3, 7);
-  4. timing   — its kernel, plain and library times (CUDA events, median)
-                beside the card's bound for the same work;
+                the card: float32 (FMA kernel) and float64 (the tensor-core
+                and the FMA kernel), at the four lattices of the flagship
+                V-cycle, (5, 3, 7), (1, 1, 1) and (7, 5, 33), with the
+                operator's cell matrix and a non-symmetric random one; the
+                float32 flagship operator held symmetric;
+  4. timing   — kernel times (CUDA events, median) at the four lattices with
+                registers and shared memory from ptxas, achieved TFLOP/s and
+                GB/s, the SM clock under the kernel, and at the flagship the
+                plain and library times beside the card's bound;
   5. default  — the reference default case (README quick start, 29,403 DOF,
                 block-Jacobi, f64) through SolidReactionAnalysis on the card,
                 held to the golden assertions;
@@ -30,7 +35,8 @@ Phases (any failure ends the run with a nonzero exit code):
                 equilibrium held under a separately assembled f64 operator,
                 its corner reactions to phase 6's;
   9. take_rows against its plain version (exact) at that operator's
-                gathers, float32 and float64, then timed;
+                gathers, float32 and float64, then timed beside
+                index_select, its bytes bound and its sector bound;
  10. unstructured bench — bench.py:223-308 with the TG operator: f32 pcg
                 with the lattice preconditioner to 1e-5, 17 +- 2 iterations,
                 profiled once;
@@ -164,65 +170,127 @@ def counted(torch, fn):
 SCM = "structured_cell_matmul"
 
 
-def phase_kernels(torch, cm, StructuredSolidOperator, peaks):
-    """Phases 3 and 4: kernel == plain on the card, then times and bounds."""
+HIERARCHY = [FLAGSHIP, (12, 12, 48), (6, 6, 24), (3, 3, 12)]  # the flagship V-cycle's levels
+SHAPES = HIERARCHY + [ODD, (1, 1, 1), (7, 5, 33)]  # the last: no multiple of any tile
+
+
+def sm_clock_under(fn, calls=8000):
+    """nvidia-smi's SM clock (a string such as "1980 MHz"), read while fn is
+    launched `calls` times back to back."""
+    import torch
+
+    for _ in range(calls // 4):
+        fn()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           stdout=subprocess.PIPE, text=True)
+    for _ in range(calls - calls // 4):
+        fn()
+    torch.cuda.synchronize()
+    return smi.communicate(timeout=60)[0].strip()
+
+
+def phase_kernels(torch, cm, build, StructuredSolidOperator, peaks):
+    """Phases 3 and 4: every planned variant of the kernel == plain on the
+    card at seven lattices (with the operator's cell matrix and with a
+    non-symmetric random one) and the f32 operator symmetric; then times,
+    bounds and ptxas' resources at the four lattices of the V-cycle."""
     f32_peak, f64_peak, mem_tb = peaks
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resources = build.kernel_resources(SCM)
     rows = {}
     for dt in (np.float32, np.float64):
         name = np.dtype(dt).name
         tdt = getattr(torch, name)
-        row = {}
-        for n in (FLAGSHIP, ODD):
+        families = [f for (f, d) in cm.PLANNED if d == tdt]
+        default = cm.DEFAULT_FAMILY[tdt]
+        rng = np.random.default_rng(0)
+        k_random = torch.as_tensor(rng.standard_normal((81, 81)).astype(dt), device=DEVICE)
+        row = {"levels": {}}
+        for n in SHAPES:
             op = StructuredSolidOperator.from_lattice(n, (H, H, H), E, NU, dtype=dt,
                                                       device=DEVICE)
-            rng = np.random.default_rng(0)
             u = torch.as_tensor(rng.standard_normal(op.ndof).astype(dt), device=DEVICE)
-            k = cm.structured_cell_matmul(u, op.Kcell, n)
-            p = cm.structured_cell_matmul_plain(u, op.Kcell, n)
-            torch.cuda.synchronize()
-            err = (k - p).abs().max().item()
-            scale = p.abs().max().item()
-            log(f"   kernel vs plain {name} cells {n}: max|k-p| = {err:.3e}, "
-                f"max|p| = {scale:.3e}, rel = {err / scale:.3e} (tol {TOL[name]:g})")
-            check(np.isfinite(err) and err <= TOL[name] * scale,
-                  f"kernel disagrees with plain ({name}, {n})")
-            if n != FLAGSHIP:
-                continue
-            row.update(max_abs_err=err, rel_err=err / scale, tol=TOL[name])
-            # timing at the flagship shape: the raw launch (no allocation,
-            # no checks), the plain version, and the library matmul alone on
-            # a pre-gathered ue
-            fe = torch.empty_like(k)
-            fn = cm._kernel_fn(tdt)
-            stream = torch.cuda.current_stream().cuda_stream
             nx, ny, nz = n
-
-            def launch():
-                rc = fn(u.data_ptr(), op.Kcell.data_ptr(), fe.data_ptr(), nx, ny, nz, stream)
-                check(rc == 0, f"launch failed: cudaError {rc}")
-
-            ue = torch.stack([
-                cm.split_phases(u, n)[(a % 2) * 4 + (b % 2) * 2 + (c % 2)]
-                [:, a // 2:a // 2 + nx, b // 2:b // 2 + ny, c // 2:c // 2 + nz]
-                for (a, b, c) in cm._SLOTS]).reshape(81, -1)
             cells = nx * ny * nz
+            for label, kc in (("operator Kcell", op.Kcell), ("non-symmetric Kcell", k_random)):
+                p = cm.structured_cell_matmul_plain(u, kc, n)
+                scale = p.abs().max().item()
+                got = {"wrapper": cm.structured_cell_matmul(u, kc, n)}
+                for fam in families:
+                    fe = torch.full_like(p, float("nan"))
+                    rc = cm._launcher(u, kc, fe, n, cm.plan_launch(cells, tdt, sms, fam))()
+                    check(rc == 0, f"launch failed: cudaError {rc} ({name}, {fam}, {n})")
+                    got[fam] = fe
+                torch.cuda.synchronize()
+                for fam, k in got.items():
+                    err = (k - p).abs().max().item()
+                    log(f"   kernel vs plain {name} {fam:7s} cells {n} {label}: max|k-p| = "
+                        f"{err:.3e}, rel = {err / scale:.3e} (tol {TOL[name]:g})")
+                    check(np.isfinite(err) and err <= TOL[name] * scale,
+                          f"kernel disagrees with plain ({name}, {fam}, {n}, {label})")
+                    if n == FLAGSHIP and fam == "wrapper" and kc is op.Kcell:
+                        row["max_abs_err"], row["rel_err"] = err, err / scale
+            if n == FLAGSHIP and dt == np.float32:
+                # K must stay symmetric in f32 (what TF32 products would break)
+                v = torch.as_tensor(rng.standard_normal(op.ndof).astype(dt), device=DEVICE)
+                Ku, Kv = op.apply(u), op.apply(v)
+                asym = abs((v.double() @ Ku.double() - u.double() @ Kv.double()).item())
+                limit = 1e-5 * (u.double().norm() * Kv.double().norm()).item()
+                log(f"   symmetry f32 @ {n}: |v.Ku - u.Kv| = {asym:.3e} (limit {limit:.3e})")
+                check(asym <= limit, "the f32 operator is not symmetric")
+            if n not in HIERARCHY:
+                continue
+            # timing: the raw launch (no allocation, no checks) of each family
+            # at each level; at the flagship also the plain version and the
+            # library matmul alone on a pre-gathered ue
+            fe = torch.empty((81, cells), dtype=tdt, device=DEVICE)
             item = np.dtype(dt).itemsize
             nbytes = (u.numel() + 81 * 81 + 81 * cells) * item
             flops = 2.0 * 81 * 81 * cells
             t_mem = nbytes / (mem_tb * 1e12) * 1e3
             t_ops = flops / ((f32_peak if dt == np.float32 else f64_peak) * 1e12) * 1e3
+            lv = dict(cells=cells, bytes=nbytes, flops=flops, bound_ms=max(t_mem, t_ops),
+                      bound_by="operations" if t_ops >= t_mem else "bytes", variants={})
+            for fam in families:
+                plan = cm.plan_launch(cells, tdt, sms, fam)
+                launch = cm._launcher(u, op.Kcell, fe, n, plan)
+
+                def run(launch=launch):
+                    check(launch() == 0, "launch failed")
+
+                ms = cuda_ms(run)
+                # ptxas' figures exist only if this process built the library
+                res = next((r for e, r in resources.items()
+                            if plan.variant.entry_tag(tdt) in e), {})
+                check(not res.get("spill_bytes"), f"{plan.variant.label()} spills: {res}")
+                lv["variants"][fam] = dict(
+                    variant=plan.variant.label(), ms=ms, grid=plan.grid,
+                    smem_per_block=plan.smem, registers=res.get("registers"),
+                    tflops=flops / ms / 1e9, gb_s=nbytes / ms / 1e6)
+                log(f"   timing {name} {fam:5s} @ {n}: {ms:.5f} ms ({plan.variant.label()}, grid "
+                    f"{plan.grid}, {res.get('registers')} registers/thread, {plan.smem} B "
+                    f"shared/block) -> {flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.0f} "
+                    f"GB/s; bound {lv['bound_ms']:.5f} ms ({lv['bound_by']})")
+                if n == FLAGSHIP and fam == default:
+                    row["sm_clock"] = sm_clock_under(run)
+            row["levels"][str(n)] = lv
+            if n != FLAGSHIP:
+                continue
+            ue = torch.stack([
+                cm.split_phases(u, n)[(a % 2) * 4 + (b % 2) * 2 + (c % 2)]
+                [:, a // 2:a // 2 + nx, b // 2:b // 2 + ny, c // 2:c // 2 + nz]
+                for (a, b, c) in cm._SLOTS]).reshape(81, -1)
             row.update(
-                ms=cuda_ms(launch),
+                tol=TOL[name], ms=lv["variants"][default]["ms"],
                 plain_ms=cuda_ms(lambda: cm.structured_cell_matmul_plain(u, op.Kcell, n)),
                 library_ms=cuda_ms(lambda: torch.matmul(op.Kcell, ue)),
                 library_call="torch.matmul(Kcell, ue) on a pre-gathered ue (matmul only)",
-                bound_ms=max(t_mem, t_ops),
-                bound_by="operations" if t_ops >= t_mem else "bytes",
-                bytes=nbytes, flops=flops)
-            log(f"   timing {name} @ {n}: kernel {row['ms']:.4f} ms, plain "
-                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.3f} "
-                f"GFLOP, {nbytes / 1e6:.1f} MB)")
+                bound_ms=lv["bound_ms"], bound_by=lv["bound_by"], bytes=nbytes, flops=flops,
+                default_family=default)
+            log(f"   timing {name} @ {n}: kernel {row['ms']:.4f} ms ({default}), plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB); SM clock under the kernel: {row['sm_clock']}")
         rows[name] = row
     return rows
 
@@ -281,6 +349,7 @@ def flagship_case(torch, femx_torch, warm_runs=3):
     fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=E, v=NU, dtype=np.float32,
                                           cg_tol=1e-8, solver="auto", verbose=False,
                                           device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
     launches, t_run, _ = counted(torch, fa.run_simulation)
     info = fa.solve_info
     log(f"   mesh {t_mesh:.6f} s; first run_simulation {t_run:.6f} s")
@@ -317,7 +386,10 @@ def flagship_case(torch, femx_torch, warm_runs=3):
               <= 1e-6 * fnorm, "warm flagship run did not hold")
     warm = {"run_simulation_s": statistics.median(r["run_simulation_s"] for r in runs),
             "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs}
+    warm["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"   accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
+    log(f"   peak device memory of the structured flagship: "
+        f"{warm['peak_device_bytes'] / 2 ** 20:.1f} MiB")
     return launches, warm, R
 
 
@@ -423,6 +495,7 @@ def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
     os.makedirs(WORK_DIR, exist_ok=True)
     path = os.path.join(WORK_DIR, "flagship_relabelled.msh")
     t_write, _ = wall_s(lambda: write_msh(path, mesh))
+    torch.cuda.reset_peak_memory_stats()
     log(f"   mesh {t_mesh:.6f} s; write_msh {t_write:.6f} s "
         f"({os.path.getsize(path) / 1e6:.1f} MB, {mesh.num_nodes} nodes)")
     force = [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0,
@@ -489,7 +562,10 @@ def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
             "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs,
             "iterations": it, "read_mesh_s": fa.stage_times["read_mesh"],
             "write_msh_s": t_write, "corner_rel_diff": rel}
+    warm["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log(f"   unstructured accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
+    log(f"   peak device memory of the unstructured flagship: "
+        f"{warm['peak_device_bytes'] / 2 ** 20:.1f} MiB")
     return launches, fa, warm
 
 
@@ -522,9 +598,16 @@ def tg_kernel_rows(torch, fa, mem_tb):
         fn = GATHER._kernel_fn("take_rows", u3.dtype)
         stream = torch.cuda.current_stream().cuda_stream
 
-        def launch():
-            rc = fn(u3.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), 3, stream)
+        def launch(by_rows=0):
+            rc = fn(u3.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), 3, by_rows,
+                    stream)
             check(rc == 0, f"launch failed: cudaError {rc}")
+
+        # the row-per-thread kernel (built for timing) must be exact too
+        out.fill_(float("nan"))
+        launch(1)
+        torch.cuda.synchronize()
+        check(torch.equal(out, u3[idx64]), f"take_rows by rows disagrees with plain ({name})")
 
         def apply_gathers():
             for tab, ix in pairs:
@@ -532,15 +615,23 @@ def tg_kernel_rows(torch, fa, mem_tb):
 
         item = np.dtype(dt).itemsize
         nbytes = u3.numel() * item + idx.numel() * 4 + out.numel() * item
-        row = dict(max_abs_err=err, ms=cuda_ms(launch), plain_ms=cuda_ms(lambda: u3[idx64]),
+        # scattered rows cost a 32-byte sector each, whatever the row holds
+        sector_bytes = idx.numel() * (4 + 32) + out.numel() * item
+        row = dict(max_abs_err=err, ms=cuda_ms(launch), by_rows_ms=cuda_ms(lambda: launch(1)),
+                   plain_ms=cuda_ms(lambda: u3[idx64]),
                    library_ms=cuda_ms(lambda: torch.index_select(u3, 0, flat64)),
                    library_call="torch.index_select(u3, 0, connT)",
                    bound_ms=nbytes / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nbytes,
+                   sector_bound_ms=sector_bytes / (mem_tb * 1e12) * 1e3,
+                   sector_bytes=sector_bytes,
                    shape=f"u3 {tuple(u3.shape)}[connT {tuple(idx.shape)}]",
                    apply_gathers_ms=cuda_ms(apply_gathers), gathers_per_apply=len(pairs))
-        log(f"   timing take_rows {name} u3[connT]: kernel {row['ms']:.5f} ms, plain "
-            f"{row['plain_ms']:.5f} ms, index_select {row['library_ms']:.5f} ms, bound "
-            f"{row['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB); all {len(pairs)} gathers of "
+        log(f"   timing take_rows {name} u3[connT]: kernel {row['ms']:.5f} ms (row-per-thread "
+            f"kernel {row['by_rows_ms']:.5f} ms), plain {row['plain_ms']:.5f} ms, index_select "
+            f"{row['library_ms']:.5f} ms; bytes bound {row['bound_ms']:.5f} ms "
+            f"({nbytes / 1e6:.1f} MB, share {100 * row['bound_ms'] / row['ms']:.0f} %), sector "
+            f"bound {row['sector_bound_ms']:.5f} ms ({sector_bytes / 1e6:.1f} MB, share "
+            f"{100 * row['sector_bound_ms'] / row['ms']:.0f} %); all {len(pairs)} gathers of "
             f"one apply {row['apply_gathers_ms']:.5f} ms")
         rows[name] = row
     return rows
@@ -768,7 +859,7 @@ def main() -> int:
         log(f"   nvcc {name}: {secs:.2f} s\n{out.strip()}")
 
     log("3-4. structured_cell_matmul against its plain version; timing")
-    rows = phase_kernels(torch, cm, StructuredSolidOperator, peaks)
+    rows = phase_kernels(torch, cm, build, StructuredSolidOperator, peaks)
 
     paths = {}
     log("5. reference default case on the card")
@@ -855,7 +946,9 @@ def main() -> int:
         "unstructured_bench_f32_iters": ubench["iters"],
         "unstructured_bench_idle_share": ubench["idle_share"],
         "mesh_file_default_run_simulation_s": small["mesh_file_default"]["run_simulation_s"],
-        "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"]}))
+        "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"],
+        "flagship_peak_device_bytes": warm["peak_device_bytes"],
+        "unstructured_peak_device_bytes": warm_u["peak_device_bytes"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

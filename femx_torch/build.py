@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -81,6 +82,30 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return paths
+
+
+def kernel_resources(name: str) -> Dict[str, dict]:
+    """What ptxas reported (-Xptxas -v) for each kernel entry of source
+    `name` built by this process: mangled entry name -> registers per thread,
+    static shared-memory bytes, spill bytes (stores + loads)."""
+    out, entry = {}, None
+    for line in BUILD_LOG.get(name, (0.0, ""))[1].splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "static_smem": 0, "spill_bytes": 0}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[entry]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -32,7 +32,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _FUNCS = {}
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 _ARGTYPES = {
-    "take_rows": [_P, _P, _P, _I64, _I, _P],
+    "take_rows": [_P, _P, _P, _I64, _I, _I, _P],
     "take_along_axis": [_P, _P, _P, _I64, _I, _I, _I, _P],
     "row_copy": [_P, _P, _P, _I64, _I64, _D, _P],
 }
@@ -122,7 +122,7 @@ def take_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     _launch("take_rows", tab, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.numel(), width)
+            idx.numel(), width, 0)
     return out
 
 

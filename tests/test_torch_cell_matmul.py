@@ -35,6 +35,19 @@ def test_plain_matches_pallas_interpret(cx):
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=np.abs(want).max() * 1e-14)
 
 
+@pytest.mark.parametrize("n", [(7, 5, 33), (5, 3, 7), (1, 1, 1), (3, 3, 12)])
+def test_plain_matches_pallas_interpret_odd_lattices(n):
+    """Lattices whose cell counts are no multiple of any kernel tile, against
+    femx's kernel in interpret mode (one x-chunk of the whole lattice)."""
+    fx, pt = _ops(n)
+    u = np.random.default_rng(2).normal(size=fx.ndof)
+    tpu = np.asarray(fx_cell_matmul(fx._split_phases(jnp.asarray(u)), fx.Kcell, n,
+                                    cx=n[0], interpret=True))
+    want = np.moveaxis(tpu, 0, 1).reshape(81, -1)
+    got = cm.structured_cell_matmul(torch.from_numpy(u), pt.Kcell, n).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-13, atol=np.abs(want).max() * 1e-14)
+
+
 def test_cpu_wrapper_is_plain_and_uncounted():
     n = (3, 2, 5)
     _, pt = _ops(n)

@@ -39,8 +39,12 @@ def _op(n, dtype, device):
                                                 dtype=dtype, device=device)
 
 
+LATTICES = [(4, 4, 8), (5, 3, 7), (1, 1, 1), (24, 24, 96), (12, 12, 48), (6, 6, 24),
+            (3, 3, 12), (7, 5, 33)]
+
+
 @pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-5), (np.float64, 1e-12)])
-@pytest.mark.parametrize("n", [(4, 4, 8), (5, 3, 7), (1, 1, 1), (24, 24, 96)])
+@pytest.mark.parametrize("n", LATTICES)
 def test_kernel_matches_plain(cuda, dtype, rtol, n):
     """Compiled-path check (the counterpart of tests/test_pallas.py's TPU
     test). The kernel sums in another order than the plain matmul, hence a
@@ -56,6 +60,43 @@ def test_kernel_matches_plain(cuda, dtype, rtol, n):
     want = cm.structured_cell_matmul_plain(u, op.Kcell, n)
     err = (got - want).abs().max().item()
     assert err <= rtol * want.abs().max().item(), err
+
+
+def _built_variants():
+    return [(dt, v) for dt, vs in cm.BUILT.items() for v in vs]
+
+
+@pytest.mark.parametrize("dtype,variant", _built_variants(),
+                         ids=[f"{str(d)[6:]}-{v.code}" for d, v in _built_variants()])
+@pytest.mark.parametrize("n", [(7, 5, 33), (6, 6, 24), (1, 1, 1)])
+def test_every_variant_matches_plain_with_a_non_symmetric_matrix(cuda, dtype, variant, n):
+    """Each built kernel variant (both float64 families, every tile) with a
+    random cell matrix that is not symmetric: a transposed fragment or a
+    misplaced pad shows here and not with the operator's own matrix."""
+    rng = np.random.default_rng(1)
+    ndt = np.float32 if dtype == torch.float32 else np.float64
+    kcell = torch.as_tensor(rng.standard_normal((81, 81)).astype(ndt), device=cuda)
+    u = torch.as_tensor(rng.standard_normal(cm.phase_offsets(n)[-1]).astype(ndt), device=cuda)
+    want = cm.structured_cell_matmul_plain(u, kcell, n)
+    fe = torch.full_like(want, float("nan"))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = cm.plan_launch(n[0] * n[1] * n[2], dtype, sms, variant=variant)
+    assert cm._launcher(u, kcell, fe, n, plan)() == 0
+    torch.cuda.synchronize()
+    err = (fe - want).abs().max().item()
+    assert err <= (1e-5 if dtype == torch.float32 else 1e-12) * want.abs().max().item(), err
+
+
+def test_f32_operator_stays_symmetric(cuda):
+    """|v.Ku - u.Kv| small: true FP32 products (TF32 would break this)."""
+    n = (12, 12, 48)
+    op = _op(n, np.float32, cuda)
+    rng = np.random.default_rng(3)
+    u, v = (torch.as_tensor(rng.standard_normal(op.ndof).astype(np.float32), device=cuda)
+            for _ in range(2))
+    Ku, Kv = op.apply(u).double(), op.apply(v).double()
+    asym = abs((v.double() @ Ku - u.double() @ Kv).item())
+    assert asym <= 1e-5 * (u.double().norm() * Kv.norm()).item()
 
 
 def test_kernel_rejects_non_contiguous(cuda):
@@ -111,7 +152,8 @@ def _counted(key):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("shape,width", [((10, 4000), 3), ((8, 128), 128), ((8, 128), 0),
-                                         ((5,), 3), ((1, 0), 3)])
+                                         ((5,), 3), ((1, 0), 3), ((1023,), 3), ((1025,), 3),
+                                         ((341,), 3), ((3, 43), 3), ((129,), 128), ((7,), 2)])
 def test_take_rows_matches_plain(cuda, dtype, shape, width):
     rng = np.random.default_rng(0)
     tab_np = rng.standard_normal((1000, width) if width else (1000,)).astype(dtype)
@@ -162,6 +204,22 @@ def test_row_copy_matches_plain(cuda, dtype, rows, row0, n_rows, scale):
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   (scale * x_np[row0:row0 + n_rows]).astype(dtype))
     torch.testing.assert_close(got, gather.row_copy_plain(x, r0, n_rows, scale), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_rows", [1, 127, 128, 129, 515, 4097])
+def test_take_rows_by_rows_kernel_is_exact(cuda, dtype, n_rows):
+    """The row-per-thread width-3 kernel (built for timing) at row counts
+    around its chunk of 128 rows per warp and 512 per block."""
+    rng = np.random.default_rng(4)
+    tab = torch.as_tensor(rng.standard_normal((1000, 3)).astype(dtype), device=cuda)
+    idx = gather.index_tensor(rng.integers(0, 1000, size=n_rows), 1000, cuda)
+    out = torch.full((n_rows, 3), float("nan"), dtype=tab.dtype, device=cuda)
+    fn = gather._kernel_fn("take_rows", tab.dtype)
+    assert fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), n_rows, 3, 1,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, gather.take_rows_plain(tab, idx), rtol=0, atol=0)
 
 
 def test_wrappers_refuse_int64_indices_on_the_card(cuda):
