@@ -45,7 +45,13 @@ Phases (any failure ends the run with a nonzero exit code):
                 box of <= 6,000 DOF (dense Cholesky);
  12. examples — the Pallas repro counterparts (row_copy, take_rows,
                 take_along_axis at each repro's inputs, exact) and
-                bench_dyngather's sweep; take_along_axis and row_copy timed.
+                bench_dyngather's sweep; then take_along_axis checked and
+                timed beside torch.gather at every H of the sweep (f32, and
+                f64 at H=4096) with its plan's variant and bound share;
+                row_copy at repro_dynslice_value's shape beside torch.mul in
+                the event-timed loop, as device time from a CUDA-graph
+                replay, and as the host's cost per call; row_copy at 134 MB
+                moved beside torch.mul and its bytes bound.
 Phases 5-8 and 10-12 each set the kernel launch counts to 0 just before
 their first run, read them just after and check them against the count the
 solve implies.
@@ -785,29 +791,55 @@ def examples_phase(torch, mem_tb):
     log(f"   launch check examples: expect {want}, got {launches}")
     check(launches == want, "examples launch count mismatch")
 
-    rng = np.random.default_rng(0)
-    Hh = bench_dyngather.HEIGHTS[-1]
-    G = bench_dyngather.TOTAL // Hh
-    tab = torch.as_tensor(rng.standard_normal((Hh, 128)).astype(np.float32), device=DEVICE)
-    idx_np = rng.integers(0, Hh, size=(G * Hh, 128)).astype(np.int32)
-    idx = torch.as_tensor(idx_np, device=DEVICE)
-    idx64 = idx.long()
-    k = GATHER.take_along_axis(tab, idx, 0)
-    p = GATHER.take_along_axis_plain(tab, idx64, 0)
-    torch.cuda.synchronize()
-    err_t = (k - p).abs().max().item()
-    check(err_t == 0.0, "take_along_axis disagrees with plain")
-    nb = tab.numel() * 4 + idx.numel() * 4 + k.numel() * 4
-    tal = dict(max_abs_err=err_t, ms=cuda_ms(lambda: GATHER.take_along_axis(tab, idx, 0)),
-               plain_ms=cuda_ms(lambda: GATHER.take_along_axis_plain(tab, idx64, 0)),
-               library_ms=cuda_ms(lambda: torch.gather(tab, 0, idx64)),
-               library_call="torch.gather(tab, 0, idx)",
-               bound_ms=nb / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nb,
-               shape=f"tab ({Hh}, 128), idx {tuple(idx.shape)}, axis 0 (bench_dyngather H={Hh})",
-               sweep=sweep)
-    log(f"   timing take_along_axis: {json.dumps({k_: v for k_, v in tal.items() if k_ != 'sweep'})}")
-    del idx, idx64, k, p
+    def bytes_ms(nbytes):
+        return nbytes / (mem_tb * 1e12) * 1e3
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep_rows = []
+    tal = None
+    for Hh, dt in [(h, np.float32) for h in bench_dyngather.HEIGHTS] + [
+            (bench_dyngather.HEIGHTS[-1], np.float64)]:
+        rng = np.random.default_rng(0)
+        G = bench_dyngather.TOTAL // Hh
+        tab = torch.as_tensor(rng.standard_normal((Hh, 128)).astype(dt), device=DEVICE)
+        idx = torch.as_tensor(rng.integers(0, Hh, size=(G * Hh, 128)).astype(np.int32),
+                              device=DEVICE)
+        idx64 = idx.long()
+        k = GATHER.take_along_axis(tab, idx, 0)
+        p = GATHER.take_along_axis_plain(tab, idx64, 0)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        check(err == 0.0, f"take_along_axis disagrees with plain (H={Hh}, {np.dtype(dt).name})")
+        item = np.dtype(dt).itemsize
+        nb = tab.numel() * item + idx.numel() * 4 + k.numel() * item
+        plan = GATHER.plan_take_along(*idx.shape, *tab.shape, 0, item, sms)
+        rec = dict(H=Hh, dtype=np.dtype(dt).name, variant=plan.variant, grid=plan.grid,
+                   smem=plan.smem, max_abs_err=err,
+                   ms=cuda_ms(lambda: GATHER.take_along_axis(tab, idx, 0)),
+                   plain_ms=cuda_ms(lambda: GATHER.take_along_axis_plain(tab, idx64, 0)),
+                   library_ms=cuda_ms(lambda: torch.gather(tab, 0, idx64)),
+                   bound_ms=bytes_ms(nb), bytes=nb)
+        rec.update(ns_per_el=rec["ms"] * 1e6 / k.numel(), bound_share=rec["bound_ms"] / rec["ms"],
+                   vs_library=rec["library_ms"] / rec["ms"])
+        log(f"   take_along_axis H={Hh} {rec['dtype']}: {rec['ms']:.5f} ms "
+            f"({rec['ns_per_el']:.5f} ns/el, {rec['variant']}, grid {plan.grid}), torch.gather "
+            f"{rec['library_ms']:.5f} ms, bound {rec['bound_ms']:.5f} ms (share "
+            f"{100 * rec['bound_share']:.1f} %)")
+        sweep_rows.append(rec)
+        if Hh == bench_dyngather.HEIGHTS[-1] and dt == np.float32:
+            tal = dict(max_abs_err=err, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                       library_ms=rec["library_ms"], library_call="torch.gather(tab, 0, idx)",
+                       bound_ms=rec["bound_ms"], bound_by="bytes", bytes=nb,
+                       shape=f"tab ({Hh}, 128), idx {tuple(idx.shape)}, axis 0 "
+                             f"(bench_dyngather H={Hh})", variant=plan.variant)
+        del tab, idx, idx64, k, p
+    tal.update(sweep=sweep, timed_sweep=sweep_rows,
+               no_slower_than_library_at_every_h=all(r["ms"] <= r["library_ms"]
+                                                      for r in sweep_rows))
+
+    # row_copy at repro_dynslice_value's shape: the event-timed loop (host
+    # bound at 8 KB), the device time from a CUDA graph of the same 10 calls,
+    # and the host's cost of one call
     x = torch.arange(16 * 128, dtype=torch.float32, device=DEVICE).reshape(16, 128)
     r0 = torch.tensor([4], dtype=torch.int32, device=DEVICE)
     k = GATHER.row_copy(x, r0, 8)
@@ -816,14 +848,92 @@ def examples_phase(torch, mem_tb):
     err_r = (k - p).abs().max().item()
     check(err_r == 0.0, "row_copy disagrees with plain")
     nb = 2 * 8 * 128 * 4 + 4
-    rc = dict(max_abs_err=err_r, ms=cuda_ms(lambda: GATHER.row_copy(x, r0, 8)),
-              plain_ms=cuda_ms(lambda: GATHER.row_copy_plain(x, r0, 8)),
-              library_ms=cuda_ms(lambda: torch.mul(x[4:12], 1.0)),
-              library_call="torch.mul(x[4:12], 1.0)",
-              bound_ms=nb / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nb,
-              shape="x (16, 128), rows [4, 12) (repro_dynslice_value)")
+    raw = GATHER._kernel_fn("row_copy", torch.float32)
+    raw_args = (x.data_ptr(), r0.data_ptr(), k.data_ptr(), 8, 128, 1.0,
+                torch.cuda.current_stream().cuda_stream)
+    calls = {"row_copy": lambda: GATHER.row_copy(x, r0, 8),
+             "torch.mul": lambda: torch.mul(x[4:12], 1.0),
+             "plain": lambda: GATHER.row_copy_plain(x, r0, 8),
+             "raw C entry": lambda: raw(*raw_args)}
+    # kernel and library in turns (kernel, library, library, kernel, twice),
+    # median of each: the loop measures the host, whose speed drifts within
+    # a call
+    turns = {"row_copy": [], "torch.mul": []}
+    for name in ("row_copy", "torch.mul", "torch.mul", "row_copy") * 2:
+        turns[name].append(cuda_ms(calls[name]))
+    rc = dict(max_abs_err=err_r, ms=statistics.median(turns["row_copy"]),
+              plain_ms=cuda_ms(calls["plain"]), library_ms=statistics.median(turns["torch.mul"]),
+              turns_ms=turns, library_call="torch.mul(x[4:12], 1.0)",
+              bound_ms=bytes_ms(nb), bound_by="bytes", bytes=nb,
+              shape="x (16, 128), rows [4, 12) (repro_dynslice_value)",
+              graph_device_ms=graph_device_ms(torch, calls["row_copy"]),
+              library_graph_device_ms=graph_device_ms(torch, calls["torch.mul"]),
+              host_us_per_call={name: host_us(torch, fn) for name, fn in calls.items()})
+    rc["no_slower_than_library"] = rc["ms"] <= rc["library_ms"]
     log(f"   timing row_copy: {json.dumps(rc)}")
+
+    # row_copy where bytes bind: 131,072 rows of (262,144, 128) f32
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((262_144, 128)).astype(
+        np.float32), device=DEVICE)
+    n_big = 131_072
+    k = GATHER.row_copy(x, r0, n_big)
+    torch.cuda.synchronize()
+    check(torch.equal(k, GATHER.row_copy_plain(x, r0, n_big)),
+          "row_copy disagrees with plain (large)")
+    nb = 2 * n_big * 128 * 4 + 4
+    big = dict(ms=cuda_ms(lambda: GATHER.row_copy(x, r0, n_big)),
+               plain_ms=cuda_ms(lambda: GATHER.row_copy_plain(x, r0, n_big)),
+               library_ms=cuda_ms(lambda: torch.mul(x[4:4 + n_big], 1.0)),
+               library_call="torch.mul(x[4:131076], 1.0)", bound_ms=bytes_ms(nb), bytes=nb,
+               shape="x (262144, 128), rows [4, 131076)")
+    big["bound_share"] = big["bound_ms"] / big["ms"]
+    log(f"   timing row_copy, large: {json.dumps(big)}")
+    rc["large"] = big
     return launches, {"take_along_axis": tal, "row_copy": rc}
+
+
+def graph_device_ms(torch, fn, inner=10, reps=25):
+    """Device time of one call of fn: a CUDA graph captures `inner` calls;
+    each sample replays it behind a spin kernel long enough that the host has
+    queued the replay before the card reaches it; median over `reps` of the
+    replay's time / inner."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)  # ~0.5 ms of spinning ahead of the events
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        samples.append(t0.elapsed_time(t1) / inner)
+    return statistics.median(samples)
+
+
+def host_us(torch, fn, calls=2000):
+    """The host's time to issue one call of fn (microseconds, mean of
+    `calls` back to back; the card keeps up with calls this small)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def main() -> int:

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "femx_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.PyDLL] = {}
 # name -> (build seconds, nvcc/ptxas output) for kernels built by this process
 BUILD_LOG: Dict[str, tuple] = {}
 
@@ -108,8 +108,10 @@ def kernel_resources(name: str) -> Dict[str, dict]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of kernel library `name`, built at first use."""
+def load(name: str) -> ctypes.PyDLL:
+    """The ctypes handle of kernel library `name`, built at first use. A
+    PyDLL: its entries only enqueue a launch, so they keep the GIL, which
+    saves a release and re-acquire per call."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(str(build([name])[name]))
+        _LIBS[name] = ctypes.PyDLL(str(build([name])[name]))
     return _LIBS[name]

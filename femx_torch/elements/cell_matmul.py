@@ -31,7 +31,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from femx_torch import build
+from femx_torch import launch
+from femx_torch.launch import MAX_DYNAMIC_SMEM
 
 # The 27 cell-local slots in raster order (a-major), a,b,c in {0,1,2}:
 # lattice position = cell*2 + (a,b,c). Slot s = 9a + 3b + c.
@@ -42,7 +43,7 @@ _SLOTS = [(a, b, c) for a in range(3) for b in range(3) for c in range(3)]
 LAUNCHES: collections.Counter = collections.Counter()
 
 _KERNEL = "structured_cell_matmul"
-_FUNCS = {}
+_ENTRIES = {}
 
 
 def phase_shapes(n_cells: Sequence[int]) -> List[Tuple[int, int, int]]:
@@ -82,9 +83,6 @@ def structured_cell_matmul_plain(u: torch.Tensor, kcell: torch.Tensor,
 
 
 # -- launch planning and the packed cell matrix (host side of the kernel) ------
-MAX_DYNAMIC_SMEM = 232_448  # bytes a block may opt into on sm_90
-_BLOCK_RESERVED_SMEM = 1024  # CUDA's own share of each resident block
-_SM_SMEM = 233_472           # shared memory of one SM (228 KB)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,8 +189,7 @@ class LaunchPlan:
 
 def blocks_per_sm(variant: Variant, itemsize: int) -> int:
     """Blocks of `variant` that fit one SM by shared memory and threads."""
-    by_smem = _SM_SMEM // (variant.smem_bytes(itemsize) + _BLOCK_RESERVED_SMEM)
-    return max(1, min(by_smem, 2048 // variant.threads))
+    return launch.blocks_per_sm(variant.smem_bytes(itemsize), variant.threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,28 +248,32 @@ def _packed_kcell(kcell: torch.Tensor, variant: Variant) -> torch.Tensor:
     return packed
 
 
-def _kernel_fn(dtype: torch.dtype):
-    if dtype not in _FUNCS:
+def _entry(dtype: torch.dtype) -> launch.Entry:
+    """The bound C entry for `dtype`, counted in LAUNCHES[dtype name]."""
+    if dtype not in _ENTRIES:
         suffix = "f32" if dtype == torch.float32 else "f64"
-        fn = getattr(build.load(_KERNEL), f"femx_structured_cell_matmul_{suffix}")
-        # pointers and the stream as c_void_p: without argtypes ctypes would
-        # pass them as 32-bit ints and cut them
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCS[dtype] = fn
-    return _FUNCS[dtype]
+        _ENTRIES[dtype] = launch.bind(
+            _KERNEL, f"femx_structured_cell_matmul_{suffix}",
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, LAUNCHES,
+            str(dtype).removeprefix("torch."))
+    return _ENTRIES[dtype]
+
+
+def _args(u: torch.Tensor, kcell: torch.Tensor, fe: torch.Tensor, n_cells,
+          plan: LaunchPlan) -> tuple:
+    """The C entry's arguments for `plan`, the stream left out."""
+    nx, ny, nz = n_cells
+    packed = _packed_kcell(kcell, plan.variant)
+    return (u.data_ptr(), packed.data_ptr(), fe.data_ptr(), nx, ny, nz,
+            plan.variant.code, plan.grid, plan.smem)
 
 
 def _launcher(u: torch.Tensor, kcell: torch.Tensor, fe: torch.Tensor, n_cells,
               plan: LaunchPlan):
     """A function of no arguments that launches `plan` on u's current stream
     and returns the C entry's code (0 = launched); counts nothing."""
-    nx, ny, nz = n_cells
-    fn = _kernel_fn(u.dtype)
-    packed = _packed_kcell(kcell, plan.variant)
-    args = (u.data_ptr(), packed.data_ptr(), fe.data_ptr(), nx, ny, nz,
-            plan.variant.code, plan.grid, plan.smem,
-            torch.cuda.current_stream(u.device).cuda_stream)
+    fn = _entry(u.dtype).fn
+    args = (*_args(u, kcell, fe, n_cells, plan), launch.current_stream(u.get_device()))
     return lambda: fn(*args)
 
 
@@ -301,11 +302,7 @@ def structured_cell_matmul(u: torch.Tensor, kcell: torch.Tensor,
     fe = torch.empty((81, nx * ny * nz), dtype=u.dtype, device=u.device)
     if fe.numel() == 0:
         return fe
-    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
-    with torch.cuda.device(u.device):
-        err = _launcher(u, kcell, fe, (nx, ny, nz),
-                        plan_launch(nx * ny * nz, u.dtype, sms))()
-    if err != 0:
-        raise RuntimeError(f"structured_cell_matmul launch failed: cudaError {err}")
-    LAUNCHES[str(u.dtype).removeprefix("torch.")] += 1
+    dev = u.get_device()
+    plan = plan_launch(nx * ny * nz, u.dtype, launch.sm_count(dev))
+    launch.launch(_entry(u.dtype), dev, *_args(u, kcell, fe, (nx, ny, nz), plan))
     return fe

@@ -4,7 +4,7 @@
   the unstructured transpose-gather operator's ``u3[connT]`` and bucket
   gathers, and the lattice transfers' row gathers, run through it;
 - ``take_along_axis(tab, idx, axis)`` — per-element gather along one axis
-  (csrc/take_along_axis.cu);
+  (csrc/take_along_axis.cu), launched as ``plan_take_along`` plans it;
 - ``row_copy(x, row0, n_rows, scale)`` — scaled copy of a run of rows that
   starts at a device-held row (csrc/row_copy.cu).
 
@@ -13,74 +13,83 @@ femx's examples/ (see each source's header). On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs the plain version,
 which is also the kernel's reference. Indices are int32 on the card and are
 trusted by the kernels: builders check their range once on the host
-(``index_tensor``). Launches are counted in ``LAUNCHES`` under
-"<kernel>/<dtype>", only where a kernel is launched.
+(``index_tensor``). Every launch goes through ``femx_torch.launch`` and is
+counted in ``LAUNCHES`` under "<kernel>/<dtype>", only where a kernel is
+launched.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from femx_torch import build
+from femx_torch import launch
+from femx_torch.launch import MAX_DYNAMIC_SMEM
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-_FUNCS = {}
 _P, _I, _I64, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+# each C entry's arguments before the stream
 _ARGTYPES = {
-    "take_rows": [_P, _P, _P, _I64, _I, _I, _P],
-    "take_along_axis": [_P, _P, _P, _I64, _I, _I, _I, _P],
-    "row_copy": [_P, _P, _P, _I64, _I64, _D, _P],
+    "take_rows": [_P, _P, _P, _I64, _I, _I],
+    "take_along_axis": [_P, _P, _P] + [_I] * 8,
+    "row_copy": [_P, _P, _P, _I64, _I64, _D],
 }
+_ENTRIES = {}
+
+
+def _entry(kernel: str, dtype: torch.dtype) -> launch.Entry:
+    """The bound C entry of `kernel` for `dtype`, counted under
+    "<kernel>/<dtype>" (built and bound at first use)."""
+    key = (kernel, dtype)
+    if key not in _ENTRIES:
+        suffix = "f32" if dtype == torch.float32 else "f64"
+        _ENTRIES[key] = launch.bind(kernel, f"femx_{kernel}_{suffix}", _ARGTYPES[kernel],
+                                    LAUNCHES, f"{kernel}/{str(dtype).removeprefix('torch.')}")
+    return _ENTRIES[key]
 
 
 def _kernel_fn(kernel: str, dtype: torch.dtype):
-    key = (kernel, dtype)
-    if key not in _FUNCS:
-        suffix = "f32" if dtype == torch.float32 else "f64"
-        fn = getattr(build.load(kernel), f"femx_{kernel}_{suffix}")
-        # pointers and the stream as c_void_p, 64-bit counts as c_int64:
-        # without argtypes ctypes would pass them as 32-bit ints
-        fn.argtypes = _ARGTYPES[kernel]
-        fn.restype = ctypes.c_int
-        _FUNCS[key] = fn
-    return _FUNCS[key]
+    """The raw ctypes function of `kernel` (arguments, then the stream);
+    calling it counts nothing (tests and timing loops)."""
+    return _entry(kernel, dtype).fn
 
 
 def _launch(kernel: str, ref: torch.Tensor, *args) -> None:
-    """Launch `kernel` on ref's device and stream; raise if it was refused."""
-    fn = _kernel_fn(kernel, ref.dtype)
-    with torch.cuda.device(ref.device):
-        err = fn(*args, torch.cuda.current_stream(ref.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
-    LAUNCHES[f"{kernel}/{str(ref.dtype).removeprefix('torch.')}"] += 1
+    """Launch `kernel` on ref's device and current stream; raise if it was
+    refused."""
+    launch.launch(_entry(kernel, ref.dtype), ref.get_device(), *args)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise RuntimeError(f"no {name} kernel for device {dev}")
+    first = tensors[0]
+    if not first.is_cuda:
+        raise RuntimeError(f"no {name} kernel for device {first.device}")
+    dev = first.get_device()
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: tensors on {first.device} and {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
 
 
+_FLOATS = (torch.float32, torch.float64)
+
+
 def _check_float(name: str, tab: torch.Tensor) -> None:
-    if tab.dtype not in (torch.float32, torch.float64):
+    if tab.dtype not in _FLOATS:
         raise TypeError(f"{name}: table must be float32 or float64, got {tab.dtype}")
 
 
 def _check_index(name: str, idx: torch.Tensor, cuda: bool) -> None:
-    ok = (torch.int32,) if cuda else (torch.int32, torch.int64)
-    if idx.dtype not in ok:
-        raise TypeError(f"{name}: index must be {' or '.join(map(str, ok))}, got {idx.dtype}")
+    if idx.dtype != torch.int32 and (cuda or idx.dtype != torch.int64):
+        ok = "torch.int32" if cuda else "torch.int32 or torch.int64"
+        raise TypeError(f"{name}: index must be {ok}, got {idx.dtype}")
 
 
 def index_tensor(a, n_rows: int, device) -> torch.Tensor:
@@ -132,6 +141,80 @@ def take_along_axis_plain(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> to
     return torch.gather(tab, axis, idx if idx.dtype == torch.int64 else idx.long())
 
 
+# The launch plan of csrc/take_along_axis.cu; these constants and
+# `slab_position` mirror the source's, and the C entry refuses (code 1001) a
+# plan whose shared memory or grid disagrees with it.
+SLAB_BYTES = 32                # an axis-0 slab is one 32-byte sector of columns
+SLAB_THREADS = 512
+SIMPLE_THREADS, SIMPLE_PER_THREAD = 256, 4
+ALONG_VARIANTS = {"slab": 1, "slab_scalar": 2, "l2": 3, "axis1": 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class AlongPlan:
+    """"slab"/"slab_scalar" (axis 0, the table's slab in shared memory):
+    block b stages column slab b % n_slabs and streams the index rows
+    [r rows_per_block, (r + 1) rows_per_block) with r = b // n_slabs;
+    "slab" in 16-byte output words (`word_columns` columns), "slab_scalar"
+    one element at a time. "l2" (axis 0, a table too tall for a slab) and
+    "axis1": output element e by block e // (SIMPLE_THREADS *
+    SIMPLE_PER_THREAD)."""
+
+    variant: str
+    grid: int
+    threads: int
+    smem: int
+    n_slabs: int = 0
+    rows_per_block: int = 0
+
+    @property
+    def code(self) -> int:
+        return ALONG_VARIANTS[self.variant]
+
+
+def slab_columns(itemsize: int) -> int:
+    """Table columns in one slab: 8 float32 or 4 float64."""
+    return SLAB_BYTES // itemsize
+
+
+def word_columns(itemsize: int) -> int:
+    """Columns of one 16-byte output word of the "slab" variant."""
+    return 16 // itemsize
+
+
+def slab_position(k, c, itemsize: int):
+    """Where the slab keeps column c of table row k (in elements): rows of
+    one sector, columns XOR-swizzled by the row's bits above the 4 rows of
+    one 128-byte bank line, so random rows spread over all 32 banks."""
+    s = slab_columns(itemsize)
+    return k * s + (c ^ ((k >> 2) & (s - 1)))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_take_along(rows: int, cols: int, tab_rows: int, tab_cols: int, axis: int,
+                    itemsize: int, sm_count: int, aligned: bool = True) -> AlongPlan:
+    """The launch of take_along_axis on idx (rows, cols), tab (tab_rows,
+    tab_cols): axis 0 takes the slab variants while the slab of all table
+    rows fits a block's shared memory, else "l2"; "slab" needs rows of whole
+    16-byte output words (cols a multiple of `word_columns`) and `aligned`
+    (both streams' base pointers 16-byte aligned). The slab grid fills the
+    SMs once: as many row ranges per slab as resident blocks allow."""
+    if rows * cols >= 2 ** 31 or tab_rows * tab_cols >= 2 ** 31:
+        raise ValueError(f"take_along_axis indexes in 32 bits: idx ({rows}, {cols}), "
+                         f"table ({tab_rows}, {tab_cols}) do not fit")
+    smem = tab_rows * SLAB_BYTES
+    if axis == 1 or smem > MAX_DYNAMIC_SMEM:
+        grid = -(-rows * cols // (SIMPLE_THREADS * SIMPLE_PER_THREAD))
+        return AlongPlan("axis1" if axis == 1 else "l2", grid, SIMPLE_THREADS, 0)
+    per_sm = launch.blocks_per_sm(smem, SLAB_THREADS)
+    n_slabs = -(-cols // slab_columns(itemsize))
+    ranges = max(1, min(rows, sm_count * per_sm // n_slabs))
+    rows_per_block = -(-rows // ranges)
+    ranges = -(-rows // rows_per_block)  # no block without rows
+    variant = "slab" if aligned and cols % word_columns(itemsize) == 0 else "slab_scalar"
+    return AlongPlan(variant, n_slabs * ranges, SLAB_THREADS, smem, n_slabs, rows_per_block)
+
+
 def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
     """axis 0: out[i, j] = tab[idx[i, j], j] (idx may have more rows than
     tab); axis 1: out[i, j] = tab[i, idx[i, j]]. tab and idx are 2-D; out
@@ -150,8 +233,12 @@ def take_along_axis(tab: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Te
     out = torch.empty(idx.shape, dtype=tab.dtype, device=tab.device)
     if out.numel() == 0:
         return out
-    _launch("take_along_axis", tab, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            idx.shape[0], idx.shape[1], tab.shape[1], axis)
+    (rows, cols), (tab_rows, tab_cols) = idx.shape, tab.shape
+    plan = plan_take_along(rows, cols, tab_rows, tab_cols, axis, tab.element_size(),
+                           launch.sm_count(tab.get_device()),
+                           idx.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    _launch("take_along_axis", tab, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
+            tab_rows, tab_cols, plan.code, plan.grid, plan.smem, plan.rows_per_block)
     return out
 
 
@@ -168,18 +255,29 @@ def row_copy(x: torch.Tensor, row0: torch.Tensor, n_rows: int,
     """out (n_rows, C) = scale * x[row0[0] + r, :] for x (R, C), with the
     start row read from the int32 tensor row0 on the device (never on the
     host); row0 is trusted to keep the run inside x."""
-    _check_float("row_copy", x)
-    if x.ndim != 2 or not 0 <= n_rows <= x.shape[0]:
+    # the checks of _check_float, _check_index and _check_cuda written out:
+    # at the repros' 8 KB a call costs only its host work
+    dtype = x.dtype
+    if dtype is not torch.float32 and dtype is not torch.float64:
+        raise TypeError(f"row_copy: table must be float32 or float64, got {dtype}")
+    shape = x.shape
+    if len(shape) != 2 or not 0 <= n_rows <= shape[0]:
         raise ValueError(f"row_copy: x must be 2-D with at least {n_rows} rows, "
-                         f"got {tuple(x.shape)}")
-    cuda = x.device.type == "cuda"
-    _check_index("row_copy", row0, cuda)
-    if x.device.type == "cpu":
-        return row_copy_plain(x, row0, n_rows, scale)
-    _check_cuda("row_copy", x, row0)
-    out = torch.empty((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    _launch("row_copy", x, x.data_ptr(), row0.data_ptr(), out.data_ptr(), n_rows,
-            x.shape[1], float(scale))
+                         f"got {tuple(shape)}")
+    if not x.is_cuda:
+        _check_index("row_copy", row0, False)
+        if x.device.type == "cpu":
+            return row_copy_plain(x, row0, n_rows, scale)
+        raise RuntimeError(f"no row_copy kernel for device {x.device}")
+    if row0.dtype != torch.int32:
+        _check_index("row_copy", row0, True)
+    dev = x.get_device()
+    if row0.get_device() != dev:
+        raise ValueError(f"row_copy: tensors on {x.device} and {row0.device}")
+    if not (x.is_contiguous() and row0.is_contiguous()):
+        raise ValueError("row_copy needs contiguous tensors")
+    out = x.new_empty(n_rows, shape[1])  # sizes as ints: a third cheaper than a tuple
+    if n_rows and shape[1]:
+        launch.launch(_entry("row_copy", dtype), dev, x.data_ptr(), row0.data_ptr(),
+                      out.data_ptr(), n_rows, shape[1], scale)
     return out

@@ -206,6 +206,103 @@ def test_row_copy_matches_plain(cuda, dtype, rows, row0, n_rows, scale):
     torch.testing.assert_close(got, gather.row_copy_plain(x, r0, n_rows, scale), rtol=0, atol=0)
 
 
+LIMIT_H = gather.MAX_DYNAMIC_SMEM // gather.SLAB_BYTES  # the tallest slab table
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("h", [8, 512, LIMIT_H, LIMIT_H + 1])
+@pytest.mark.parametrize("w", [7, 50, 128, 130])
+def test_take_along_axis_every_variant_is_exact(cuda, dtype, axis, h, w):
+    """axis 0: tab (h, w), idx (300, w), both sides of the slab limit, every
+    width class (16-byte words, ragged slab, scalar); axis 1: tab (300, h)."""
+    rng = np.random.default_rng(7)
+    tab_shape = (h, w) if axis == 0 else (300, h)
+    tab_np = rng.standard_normal(tab_shape).astype(dtype)
+    idx_np = rng.integers(0, tab_shape[axis], size=(300, w))
+    tab = torch.as_tensor(tab_np, device=cuda)
+    idx = gather.index_tensor(idx_np, tab_shape[axis], cuda)
+    plan = gather.plan_take_along(300, w, *tab_shape, axis, tab.element_size(),
+                                  torch.cuda.get_device_properties(cuda).multi_processor_count)
+    want_variant = ("axis1" if axis else "l2" if h > LIMIT_H
+                    else "slab" if w % gather.word_columns(tab.element_size()) == 0
+                    else "slab_scalar")
+    assert plan.variant == want_variant
+    n = _counted(f"take_along_axis/{np.dtype(dtype).name}")
+    got = gather.take_along_axis(tab, idx, axis)
+    torch.cuda.synchronize()
+    assert n() == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), np.take_along_axis(tab_np, idx_np, axis))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_take_along_axis_misaligned_index_takes_the_scalar_slab(cuda, dtype):
+    rng = np.random.default_rng(8)
+    tab_np = rng.standard_normal((64, 128)).astype(dtype)
+    idx_np = rng.integers(0, 64, size=(500, 128))
+    flat = gather.index_tensor(np.r_[0, idx_np.ravel()], 64, cuda)
+    idx = flat[1:].view(500, 128)  # contiguous, 4 bytes past a 16-byte boundary
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4
+    got = gather.take_along_axis(torch.as_tensor(tab_np, device=cuda), idx, 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), np.take_along_axis(tab_np, idx_np, 0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("cols", [128, 130])
+@pytest.mark.parametrize("row0", [0, 1, 17])
+@pytest.mark.parametrize("n_rows", [1, 100_000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_row_copy_words_and_elements_are_exact(cuda, dtype, cols, row0, n_rows, offset):
+    """16-byte words (128 columns, aligned x) and single elements (130
+    columns, or x one element past an aligned address), at one row and at
+    100,000; scale -0.5 and 1."""
+    rng = np.random.default_rng(9)
+    x_np = rng.standard_normal((n_rows + 20, cols)).astype(dtype)
+    buf = torch.as_tensor(np.r_[np.zeros(offset, dtype), x_np.ravel()], device=cuda)
+    x = buf[offset:].view(n_rows + 20, cols)
+    assert x.data_ptr() % 16 == (0 if offset == 0 else x.element_size())
+    r0 = torch.tensor([row0], dtype=torch.int32, device=cuda)
+    for scale in (-0.5, 1.0):
+        got = gather.row_copy(x, r0, n_rows, scale)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      (scale * x_np[row0:row0 + n_rows]).astype(dtype))
+
+
+def _graph_matches_eager(fn):
+    """fn's result from a replay of a CUDA graph that captured it (after a
+    warm-up on a side stream) against an eager call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(captured, fn(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_gather_kernels_replay_in_a_cuda_graph(cuda, dtype):
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.standard_normal((64, 128)).astype(dtype), device=cuda)
+    r0 = torch.tensor([5], dtype=torch.int32, device=cuda)
+    idx = gather.index_tensor(rng.integers(0, 64, size=(300, 128)), 64, cuda)
+    rows = gather.index_tensor(rng.integers(0, 64, size=(40, 7)), 64, cuda)
+    tab3 = x[:, :3].contiguous()
+    name = np.dtype(dtype).name
+    before = {k: gather.LAUNCHES[f"{k}/{name}"] for k in ("row_copy", "take_along_axis",
+                                                           "take_rows")}
+    _graph_matches_eager(lambda: gather.row_copy(x, r0, 32, 2.0))
+    _graph_matches_eager(lambda: gather.take_along_axis(x, idx, 0))
+    _graph_matches_eager(lambda: gather.take_rows(tab3, rows))
+    # warm-up, capture and eager call each launched once
+    assert all(gather.LAUNCHES[f"{k}/{name}"] == v + 3 for k, v in before.items())
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("n_rows", [1, 127, 128, 129, 515, 4097])
 def test_take_rows_by_rows_kernel_is_exact(cuda, dtype, n_rows):
