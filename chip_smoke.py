@@ -51,10 +51,23 @@ Phases (any failure ends the run with a nonzero exit code):
                 row_copy at repro_dynslice_value's shape beside torch.mul in
                 the event-timed loop, as device time from a CUDA-graph
                 replay, and as the host's cost per call; row_copy at 134 MB
-                moved beside torch.mul and its bytes bound.
-Phases 5-8 and 10-12 each set the kernel launch counts to 0 just before
-their first run, read them just after and check them against the count the
-solve implies.
+                moved beside torch.mul and its bytes bound;
+ 13. solid extras and modal — (a) bench.py:148-202: shift-invert Lanczos
+                (10 modes) with f32 MG-PCG inner solves on phase 7's
+                operator, first and steady, then shift_invert_refine through
+                pcg_refined to a true residual of 1e-9, against BENCH_r05's
+                parity numbers (22 +- 4 inner solves, f1-f3 within 1e-2,
+                refined f1 within 1e-5, bounds); (b) modal(n_modes=10),
+                compute_stresses (rows held to the CPU's) and solve_cases
+                (3 cases) on phase 6's analysis; (c) phase 5's case with
+                checkpoint= (chunks of 100) cut at 300 iterations, then
+                resumed by a second analysis; (d) modal(n_modes=6,
+                refine=True) on phase 11's mesh-file default (take_rows f64)
+                and phase 5's structured default (cell kernel f64), their
+                frequencies within 1e-6.
+Phases 5-8 and 10-13 each set the kernel launch counts to 0 just before
+each path's first run, read them just after and check them against the
+count its iteration counts imply.
 The last two lines are a {"kernels": [...]} JSON object and the
 {"ok": true, "device": {...}} JSON object. Without CUDA it exits nonzero and
 prints no result.
@@ -301,18 +314,23 @@ def phase_kernels(torch, cm, build, StructuredSolidOperator, peaks):
     return rows
 
 
-def reference_case(torch, femx_torch):
-    """Phase 5: README quick start on the card, golden assertions of
-    tests/test_reference_goldens.py:164-182; returns the launch counts and
-    the corner reactions."""
+def default_analysis(femx_torch, **kw):
+    """The README quick start's analysis (29,403 DOF, f64, block-Jacobi)."""
     corners = CORNERS_DEFAULT
     mesh = femx_torch.box_tet10(0.8, 0.2, 0.8, 0.05, force_points=[(0.4, 0.2, 0.4)],
                                 fix_points=[(x, 0, z) for x, z in corners])
-    fa = femx_torch.SolidReactionAnalysis(
+    return femx_torch.SolidReactionAnalysis(
         mesh, [{"force_x": 0, "force_y": 3000.0, "force_z": 0, "force_x_pstn": 0.4,
                 "force_y_pstn": 0.2, "force_z_pstn": 0.4}],
         [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
-         for x, z in corners], E=E, v=NU, verbose=False, device=DEVICE)
+         for x, z in corners], E=E, v=NU, verbose=False, device=DEVICE, **kw)
+
+
+def reference_case(torch, femx_torch):
+    """Phase 5: README quick start on the card, golden assertions of
+    tests/test_reference_goldens.py:164-182; returns the launch counts, the
+    corner reactions and the analysis."""
+    fa = default_analysis(femx_torch)
     launches, t_run, _ = counted(torch, fa.run_simulation)
     log(f"   run_simulation {t_run:.6f} s")
     log(f"   solve_info {fa.solve_info}")
@@ -334,12 +352,12 @@ def reference_case(torch, femx_torch):
     check(np.all(np.abs(np.abs(R[:, [0, 2]]) - 376.0) <= 0.15 * 376.0), "|Rx|,|Rz| ~ 376")
     check(R[0, 0] < 0 and R[1, 0] < 0 and R[2, 0] > 0 and R[3, 0] > 0, "Rx signs")
     check(R[0, 2] < 0 and R[1, 2] > 0 and R[2, 2] < 0 and R[3, 2] > 0, "Rz signs")
-    return launches, R
+    return launches, R, fa
 
 
 def flagship_case(torch, femx_torch, warm_runs=3):
     """Phase 6: the structured path at 1,390,179 DOF; returns the launch
-    counts, the warm timings and the corner reactions."""
+    counts, the warm timings, the corner reactions and the analysis."""
     corners = CORNERS_FLAGSHIP
     t0 = time.perf_counter()
     mesh = femx_torch.box_tet10(0.4, 0.4, 1.6, mesh_size=H, force_points=[(0.2, 0.4, 1.6)],
@@ -396,11 +414,13 @@ def flagship_case(torch, femx_torch, warm_runs=3):
     log(f"   accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
     log(f"   peak device memory of the structured flagship: "
         f"{warm['peak_device_bytes'] / 2 ** 20:.1f} MiB")
-    return launches, warm, R
+    return launches, warm, R, fa
 
 
 def bench_flow(torch, femx_torch):
-    """Phase 7: bench.py:64-145 through the port's modules."""
+    """Phase 7: bench.py:64-145 through the port's modules; returns what
+    the end-to-end line reports and the f32 operator, its V-cycle and the
+    f64 operator (phase 13 reuses them)."""
     from femx_torch.solve.cg import pcg, pcg_refined
     from femx_torch.solve.multigrid import StructuredMultigrid
 
@@ -484,7 +504,7 @@ def bench_flow(torch, femx_torch):
     log(f"   profiled solve: {t_prof * 1e3:.1f} ms wall, {device_ms:.1f} ms device time "
         f"-> device idle {100 * (1 - device_ms / (t_prof * 1e3)):.1f} % (unprofiled wall "
         f"{t_f32 * 1e3:.1f} ms -> idle {100 * (1 - device_ms / (t_f32 * 1e3)):.1f} %)")
-    return out
+    return out, (op, mg, op64)
 
 
 def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
@@ -763,7 +783,8 @@ def small_mesh_files(torch, femx_torch, R_default):
             check(3 * fa.num_nodes <= 6000 and info["method"] == "dense_cholesky", str(info))
             want = {}
         check(launches == want, f"{label} launch count mismatch: expect {want}")
-        out[label] = {"launches": launches, "run_simulation_s": t_run, "solve_info": info}
+        out[label] = {"launches": launches, "run_simulation_s": t_run, "solve_info": info,
+                      "analysis": fa}
     return out
 
 
@@ -892,6 +913,221 @@ def examples_phase(torch, mem_tb):
     return launches, {"take_along_axis": tal, "row_copy": rc}
 
 
+BENCH_F_HZ = (121.70, 121.88, 450.56)  # BENCH_r05.json: the f32 Lanczos f1-f3
+BENCH_F1_REFINED_HZ = 120.962324  # BENCH_r05.json: the Ritz-refined f1
+RHO = 7850.0
+
+
+def pcg_launches(its, per_apply=1, per_precond=0):
+    """Kernel launches of pcg calls with these iteration counts: one
+    operator apply and one preconditioner call up front and per iteration."""
+    return (per_apply + per_precond) * (sum(its) + len(its))
+
+
+def bench_modal(torch, bench_ops):
+    """Phase 13(a): bench.py:148-202 through the port: shift-invert Lanczos
+    with f32 MG-PCG inner solves on the face-clamped flagship (twice: first
+    and steady), then shift_invert_refine through pcg_refined to a true
+    residual of 1e-9, held to BENCH_r05's parity numbers."""
+    from femx_torch.modal import shift_invert_refine, solid_modal_structured
+    from femx_torch.solve.cg import pcg_refined
+
+    op, mg, op64 = bench_ops
+    per_vcycle = 5 * (len(mg.levels) - 1)
+
+    def lanczos():
+        return solid_modal_structured(op, mg, rho=RHO, n_modes=10, inner_tol=1e-5,
+                                      inner_maxiter=200, tol=1e-4, maxiter=60)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, t_first, mres = counted(torch, lanczos)
+    inner = mres.inner_iterations
+    want = {f"{SCM}/float32": pcg_launches(inner, 1, per_vcycle)}
+    log(f"   Lanczos: {mres.iterations} inner MG-PCG solves of {inner} iterations; "
+        f"launch check: expect {want}, got {launches}")
+    check(len(inner) == mres.iterations and launches == want, "Lanczos launch count mismatch")
+    t_steady, mres = wall_s(lanczos)
+    peak = torch.cuda.max_memory_allocated()
+    f_hz = mres.omega.cpu().numpy() / (2 * np.pi)
+    log(f"   modal first-10: {t_steady:.6f} s steady, {t_first:.6f} s first; f = "
+        f"{f_hz.tolist()} Hz; peak device memory {peak / 2 ** 20:.1f} MiB")
+    check(abs(mres.iterations - 22) <= 4, f"{mres.iterations} inner solves, not 22 +- 4")
+    rel3 = np.abs(f_hz[:3] / np.array(BENCH_F_HZ) - 1.0)
+    log(f"   f1-f3 against BENCH_r05's {BENCH_F_HZ}: rel {rel3.tolist()}")
+    check(np.all(rel3 <= 1e-2), "Lanczos f1-f3 off BENCH_r05's by more than 1e-2")
+
+    m64 = op.lumped_mass_diagonal(RHO)
+    solves = []
+
+    def ks_tight(b):
+        r = pcg_refined(op.apply_constrained, b.to(torch.float32), M_inv_diag=mg, tol=1e-5,
+                        maxiter=200, refine_steps=6, A_residual=op64.apply_constrained,
+                        b_residual=b, outer_tol=1e-9)
+        solves.append((r.iterations, r.residual_norm))
+        return r.x
+
+    launches_r, t_ref, (om_ref, eta, _) = counted(
+        torch, lambda: shift_invert_refine(ks_tight, m64, mres.modes))
+    # pcg_refined: 1 + passes f32 pcg calls and as many f64 residuals
+    calls = launches_r.get(f"{SCM}/float64", 0)
+    want = {f"{SCM}/float32": (1 + per_vcycle) * (sum(i for i, _ in solves) + calls),
+            f"{SCM}/float64": calls}
+    log(f"   refinement: {len(solves)} accurate solves, {calls} pcg calls, true residuals "
+        f"max {max(r for _, r in solves):.3e}; launch check: expect {want}, got {launches_r}")
+    check(len(solves) == 20 and 20 <= calls <= 20 * 7 and launches_r == want,
+          "refinement launch count mismatch")
+    f_ref = om_ref.cpu().numpy() / (2 * np.pi)
+    eta = eta.cpu().numpy()
+    rel1 = abs(f_ref[0] / BENCH_F1_REFINED_HZ - 1.0)
+    log(f"   refined: {t_ref:.6f} s, f1 {f_ref[0]:.6f} Hz (Lanczos {f_hz[0]:.6f}; rel to "
+        f"BENCH_r05's {BENCH_F1_REFINED_HZ}: {rel1:.3e}); bounds {eta.tolist()}")
+    check(rel1 <= 1e-5, "refined f1 off BENCH_r05's by more than 1e-5")
+    check(eta[0] <= 1e-5 and eta.max() <= 1e-2, f"Ritz bounds {eta.tolist()}")
+    return {"launches_lanczos": launches, "launches_refine": launches_r,
+            "modal10_s": t_steady, "modal10_first_s": t_first,
+            "modal10_inner_solves": mres.iterations, "modal10_inner_iterations": inner,
+            "modal_f_lanczos_hz": f_hz.tolist(), "modal_f1_lanczos_hz": float(f_hz[0]),
+            "modal_f1_hz": float(f_ref[0]), "modal_f_refined_hz": f_ref.tolist(),
+            "modal_bounds": eta.tolist(), "modal_refine_s": t_ref,
+            "modal_refine_iterations": [i for i, _ in solves],
+            "modal_peak_device_bytes": peak}
+
+
+def analysis_extras(torch, femx_torch, fa):
+    """Phase 13(b): modal(n_modes=10), compute_stresses and solve_cases on
+    phase 6's corner-fixed f32 flagship analysis."""
+    from femx_torch.analysis.solid import nodal_stresses
+
+    per_vcycle = 5 * (len(fa._precond.levels) - 1)
+    out = {}
+    launches, t_modal, res = counted(torch, lambda: fa.modal(n_modes=10, rho=RHO))
+    info = fa.modal_info
+    want = {f"{SCM}/float32": pcg_launches(info["inner_iterations"], 1, per_vcycle)}
+    f_hz = res.omega.cpu().numpy() / (2 * np.pi)
+    V = res.modes.double()
+    mass = torch.as_tensor(fa.operator.to_global(fa._lumped_mass(RHO)), device=DEVICE)
+    orth = float((V.T @ (mass[:, None] * V) - torch.eye(10, dtype=V.dtype, device=DEVICE))
+                 .abs().max())
+    log(f"   fa.modal(n_modes=10): {t_modal:.6f} s, {info['iterations']} inner solves of "
+        f"{info['inner_iterations']} iterations; f = {f_hz.tolist()} Hz; "
+        f"max|V^T M V - I| = {orth:.3e}; launch check: expect {want}, got {launches}")
+    check(launches == want, "analysis modal launch count mismatch")
+    check(res.modes.shape == (3 * fa.num_nodes, 10) and np.all(f_hz > 0)
+          and np.all(np.diff(f_hz) >= 0), "frequencies not positive and ascending")
+    check(orth <= 1e-4, "modes not mass-orthonormal")
+    out.update(analysis_modal10_s=t_modal, analysis_modal_f_hz=f_hz.tolist(),
+               analysis_modal_inner_solves=info["iterations"], launches_modal=launches)
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, t_st, (nodal, vm) = counted(torch, fa.compute_stresses)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {}, f"compute_stresses launched kernels: {launches}")
+    check(nodal.shape == (fa.num_nodes, 6) and np.all(np.isfinite(nodal))
+          and np.all(np.isfinite(vm)), "stresses not finite")
+    t_cpu, (nodal_c, vm_c) = wall_s(lambda: nodal_stresses(
+        fa.points, fa.tetra10_conn, fa.u, fa.C, device="cpu"))
+    rows = np.random.default_rng(0).choice(fa.num_nodes, 1000, replace=False)
+    rel = max(rel_diff(nodal[rows], nodal_c[rows]), rel_diff(vm[rows], vm_c[rows]))
+    log(f"   compute_stresses: {t_st:.6f} s on the card ({t_cpu:.3f} s on the CPU), peak "
+        f"{peak / 2 ** 20:.1f} MiB, max von Mises {vm.max():.6e} Pa; 1,000 sampled rows "
+        f"against the CPU: rel {rel:.3e}")
+    check(rel <= 1e-12, "compute_stresses differs from the CPU run")
+    out.update(compute_stresses_s=t_st, compute_stresses_peak_device_bytes=peak,
+               compute_stresses_cpu_rel=rel, launches_stresses=launches)
+
+    f0 = fa.force_data
+    f1 = [{"force_x": 700.0, "force_y": 0.0, "force_z": 300.0, "force_x_pstn": 0.4,
+           "force_y_pstn": 0.4, "force_z_pstn": 0.8}]
+    launches, t_cases, U = counted(torch, lambda: fa.solve_cases([f0, f1, f0 + f1]))
+    its = [c["iterations"] for c in fa.case_solve_info]
+    # as solve(): f64 CG on the f64 operator, the f32 V-cycle as preconditioner
+    want = {f"{SCM}/float64": pcg_launches(its), f"{SCM}/float32": pcg_launches(its, 0, per_vcycle)}
+    r0, r2 = rel_diff(U[0], fa.u), rel_diff(U[2], U[0] + U[1])
+    log(f"   solve_cases (3 cases): {t_cases:.6f} s, iterations {its}, residuals "
+        f"{[c['residual'] for c in fa.case_solve_info]}; |U0 - u| rel {r0:.3e}, "
+        f"|U2 - (U0 + U1)| rel {r2:.3e}; launch check: expect {want}, got {launches}")
+    check(launches == want, "solve_cases launch count mismatch")
+    check(all(c["converged"] for c in fa.case_solve_info) and np.all(np.isfinite(U)),
+          "a case did not converge")
+    check(r0 <= 1e-4 and r2 <= 1e-4, "solve_cases disagrees with solve() or linearity")
+    out.update(solve_cases_s=t_cases, solve_cases_iters=its, launches_cases=launches)
+    return out
+
+
+def checkpoint_case(torch, femx_torch, R_default, R_iterations):
+    """Phase 13(c): phase 5's case with checkpoint= (chunks of 100): a first
+    run cut at 300 iterations, then a second analysis that resumes from the
+    file and continues CG: phase 5's iteration count and reactions."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    path = os.path.join(WORK_DIR, "default_case_state")
+    chunk = 100
+
+    def chunked_launches(done):
+        # the chunks continue CG's recurrences: one apply per iteration, one
+        # up front (the first residual, or checking the file's against
+        # b - A x on resume) and one for the reactions
+        return {f"{SCM}/float64": done + 2}
+
+    try:
+        first = default_analysis(femx_torch, checkpoint=path, checkpoint_chunk=chunk)
+        first.CHECKPOINT_MAXITER = 300
+        launches1, t1, _ = counted(torch, first.run_simulation)
+        info1 = first.solve_info
+        want1 = chunked_launches(info1["iterations"])
+        log(f"   cut run: {t1:.6f} s, solve_info {info1}; launch check: expect {want1}, "
+            f"got {launches1}")
+        check(not info1["converged"] and info1["iterations"] == 300, "the cut run did not stop")
+        check(launches1 == want1, "checkpoint cut run launch count mismatch")
+        fa = default_analysis(femx_torch, checkpoint=path, checkpoint_chunk=chunk)
+        launches2, t2, _ = counted(torch, fa.run_simulation)
+        info = fa.solve_info
+        want2 = chunked_launches(info["iterations"] - info["resumed_iterations"])
+        rel = rel_diff(corner_reactions(fa), R_default)
+        log(f"   resumed run: {t2:.6f} s, solve_info {info}; corner reactions vs phase 5: "
+            f"rel {rel:.3e}; launch check: expect {want2}, got {launches2}")
+        check(info["method"] == "structured_block_jacobi_pcg_checkpointed", info["method"])
+        check(info["resumed_iterations"] == 300 and info["converged"], "did not resume")
+        check(info["iterations"] == R_iterations, f"{info['iterations']} iterations in all, "
+              f"not phase 5's {R_iterations}")
+        check(launches2 == want2, "checkpoint resumed run launch count mismatch")
+        check(rel <= 1e-9, "resumed reactions differ from phase 5's")
+    finally:
+        for ext in (".npz", ".json"):
+            if os.path.exists(path + ext):
+                os.remove(path + ext)
+    return {"launches_cut": launches1, "launches_resumed": launches2,
+            "checkpoint_cut_s": t1, "checkpoint_resumed_s": t2,
+            "checkpoint_iterations": info["iterations"], "checkpoint_reactions_rel": rel}
+
+
+def mesh_file_modal(torch, fa_file, fa_default):
+    """Phase 13(d): modal(n_modes=6, tol=1e-6, refine=True) on phase 11's
+    mesh-file default (TG + block-Jacobi, f64: take_rows) and on phase 5's
+    structured default (the f64 cell kernel): the same K and lumped mass,
+    so the same frequencies."""
+    out, f = {}, {}
+    for label, fa, key, per in (
+            ("mesh_file_modal", fa_file, "take_rows/float64", fa_file.operator.gathers_per_apply),
+            ("default_modal", fa_default, f"{SCM}/float64", 1)):
+        launches, t, res = counted(torch, lambda fa=fa: fa.modal(n_modes=6, tol=1e-6,
+                                                                  refine=True))
+        info = fa.modal_info
+        its = info["inner_iterations"] + info["refine_iterations"]
+        want = {key: pcg_launches(its, per)}
+        f[label] = res.omega.cpu().numpy() / (2 * np.pi)
+        log(f"   {label}: {t:.6f} s, {info['iterations']} Lanczos steps, inner iterations "
+            f"{sum(info['inner_iterations'])}, refine {info['refine_iterations']}; f = "
+            f"{f[label].tolist()} Hz, bounds {fa.modal_error_bounds.tolist()}; launch "
+            f"check: expect {want}, got {launches}")
+        check(launches == want, f"{label} launch count mismatch")
+        out[label] = {"launches": launches, "s": t, "f_hz": f[label].tolist()}
+    rel = rel_diff(f["mesh_file_modal"], f["default_modal"])
+    log(f"   mesh-file against structured frequencies: rel {rel:.3e}")
+    check(rel <= 1e-6, "mesh-file and structured modal frequencies differ")
+    out["rel"] = rel
+    return out
+
+
 def graph_device_ms(torch, fn, inner=10, reps=25):
     """Device time of one call of fn: a CUDA graph captures `inner` calls;
     each sample replays it behind a spin kernel long enough that the host has
@@ -973,13 +1209,13 @@ def main() -> int:
 
     paths = {}
     log("5. reference default case on the card")
-    paths["default_case"], R_default = reference_case(torch, femx_torch)
+    paths["default_case"], R_default, fa_default = reference_case(torch, femx_torch)
 
     log("6. flagship (structured) through SolidReactionAnalysis")
-    paths["flagship"], warm, R_flagship = flagship_case(torch, femx_torch)
+    paths["flagship"], warm, R_flagship, fa_flagship = flagship_case(torch, femx_torch)
 
     log("7. bench flow")
-    bench = bench_flow(torch, femx_torch)
+    bench, bench_ops = bench_flow(torch, femx_torch)
     paths["bench_f32_solve"] = bench["launches_f32_solve"]
     paths["bench_refined_solve"] = bench["launches_refined_solve"]
 
@@ -1002,6 +1238,27 @@ def main() -> int:
 
     log("12. examples: repro counterparts and the bench_dyngather sweep")
     paths["examples"], ex_rows = examples_phase(torch, peaks[2])
+
+    log("13. solid extras and modal")
+    log(" (a) bench.py's modal: f32 Lanczos on the face-clamped flagship, then refined")
+    modal = bench_modal(torch, bench_ops)
+    paths["modal_lanczos"] = modal["launches_lanczos"]
+    paths["modal_refine"] = modal["launches_refine"]
+    del bench_ops
+    log(" (b) modal, compute_stresses and solve_cases on the corner-fixed f32 flagship")
+    extras = analysis_extras(torch, femx_torch, fa_flagship)
+    paths["analysis_modal"] = extras["launches_modal"]
+    paths["compute_stresses"] = extras["launches_stresses"]
+    paths["solve_cases"] = extras["launches_cases"]
+    del fa_flagship
+    log(" (c) checkpoint= on the default case: a cut run, then a resumed one")
+    ck = checkpoint_case(torch, femx_torch, R_default, fa_default.solve_info["iterations"])
+    paths["checkpoint_cut"] = ck["launches_cut"]
+    paths["checkpoint_resumed"] = ck["launches_resumed"]
+    log(" (d) refined modal on the mesh-file default (TG) and the structured default")
+    mfm = mesh_file_modal(torch, small["mesh_file_default"]["analysis"], fa_default)
+    paths["mesh_file_modal"] = mfm["mesh_file_modal"]["launches"]
+    paths["default_modal"] = mfm["default_modal"]["launches"]
 
     def by_path(key):
         return {p: int(c.get(key, 0)) for p, c in paths.items()}
@@ -1058,7 +1315,21 @@ def main() -> int:
         "mesh_file_default_run_simulation_s": small["mesh_file_default"]["run_simulation_s"],
         "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"],
         "flagship_peak_device_bytes": warm["peak_device_bytes"],
-        "unstructured_peak_device_bytes": warm_u["peak_device_bytes"]}))
+        "unstructured_peak_device_bytes": warm_u["peak_device_bytes"],
+        "modal10_s": modal["modal10_s"], "modal10_first_s": modal["modal10_first_s"],
+        "modal10_inner_solves": modal["modal10_inner_solves"],
+        "modal_f1_hz": modal["modal_f1_hz"], "modal_f1_lanczos_hz": modal["modal_f1_lanczos_hz"],
+        "modal_f1_bound": modal["modal_bounds"][0], "modal_max_bound": max(modal["modal_bounds"]),
+        "modal_refine_s": modal["modal_refine_s"],
+        "modal_peak_device_bytes": modal["modal_peak_device_bytes"],
+        "analysis_modal10_s": extras["analysis_modal10_s"],
+        "compute_stresses_s": extras["compute_stresses_s"],
+        "compute_stresses_peak_device_bytes": extras["compute_stresses_peak_device_bytes"],
+        "solve_cases_iters": extras["solve_cases_iters"], "solve_cases_s": extras["solve_cases_s"],
+        "checkpoint_resumed_s": ck["checkpoint_resumed_s"],
+        "checkpoint_iterations": ck["checkpoint_iterations"],
+        "mesh_file_modal_s": mfm["mesh_file_modal"]["s"],
+        "default_modal_s": mfm["default_modal"]["s"]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ The solid reaction solve runs on the card for a structured box Tet10 mesh
 (matrix-free lattice operator, its gather + cell matmul a hand-written CUDA
 kernel) and for any Tet10 mesh given as a Mesh or read from a Gmsh .msh
 file (dense Cholesky, or the transpose-gather operator, its row gathers a
-hand-written CUDA kernel, with block-Jacobi or lattice-multigrid PCG).
-Entry points run on CUDA unless the caller passes ``device="cpu"``; without
+hand-written CUDA kernel, with block-Jacobi or lattice-multigrid PCG), and
+the analysis' modal analysis (femx_torch.modal), nodal stresses, load
+cases and checkpoint/resume (femx_torch.checkpoint). Entry points run on CUDA unless the caller passes ``device="cpu"``; without
 CUDA they raise. The package imports torch and numpy, never jax and nothing
 of femx.
 """

@@ -29,6 +29,18 @@ tests/test_torch_f32_witness.py). The small-mesh routes solve in float64
 whatever dtype says. Reactions are r = K u with the unconstrained float64
 operator.
 
+Beyond the static solve, as in femx: `modal` (shift-invert Lanczos with
+the stored preconditioner's inner solves, HRZ-lumped mass, optional
+Rayleigh-Ritz refinement through accurate solves), `compute_stresses`
+(element-averaged Gauss-point stresses averaged to nodes, von Mises),
+`solve_cases` (more load cases through the stored operator and
+preconditioner) and `checkpoint=` (the matrix-free solves in
+`checkpoint_chunk`-iteration segments persisted to a file that a later run
+resumes from; femx_torch.checkpoint). The float32 routes refine modes,
+solve load cases and checkpoint their solves on the float64-assembled
+operator with the float32 preconditioner (pcg_mixed), not on the float32
+operator (cast up) as femx does, for the reason above.
+
 Everything runs on `device` (None = CUDA; without CUDA it raises unless the
 caller passes device="cpu"), in `dtype` (None = config.default_dtype(),
 float64 unless FEMX_DTYPE says otherwise).
@@ -44,19 +56,53 @@ import numpy as np
 import torch
 
 from femx_torch import bc as bc_mod
+from femx_torch import checkpoint as ckpt
 from femx_torch.assembly import SolidOperator, assemble_dense, dof_map
 from femx_torch.assembly_soa import BlockJacobiPrecond, SolidOperatorSoA
-from femx_torch.assembly_structured import StructuredSolidOperator
+from femx_torch.assembly_structured import StructuredBlockJacobi, StructuredSolidOperator
 from femx_torch.assembly_tg import SolidOperatorTG
 from femx_torch.config import (DEFAULT_COMPAT, ReferenceCompat, default_dtype,
-                               numpy_dtype, resolve_device)
+                               numpy_dtype, resolve_device, torch_dtype)
+from femx_torch.elements import tet10 as tet10_el
 from femx_torch.elements.tet10 import material_matrix
 from femx_torch.mesh.core import Mesh, nodes_in_physical_group
 from femx_torch.mesh.msh_io import read_msh
+from femx_torch.modal import ModalResult, modal_shift_invert, shift_invert_refine
 from femx_torch.solve.cg import pcg, pcg_mixed
 from femx_torch.solve.dense import solve_dense
 from femx_torch.solve.lattice_precond import LatticePreconditioner
 from femx_torch.solve.multigrid import StructuredMultigrid
+
+
+def nodal_stresses(points, conn, u, C, device=None, chunk: int = 65536):
+    """Per-node averaged stress tensors and von Mises field, float64.
+
+    Voigt stresses at the 4 Gauss points of every element, averaged per
+    element, then averaged to the nodes with element-count weighting (the
+    reference's nodal smoothing for beams, BeamSolver.py:420-438), summed
+    on `device` with index_add_ over chunks of `chunk` elements (the
+    Jacobian data of 331,776 elements is ~320 MB in float64).
+
+    points (N, 3), conn (E, 10), u (3N,) host arrays; C (6, 6).
+    Returns host numpy (nodal_stress (N, 6), nodal_von_mises (N,)).
+    """
+    dev = resolve_device(device)
+    f64 = torch.float64
+    pts = torch.as_tensor(np.asarray(points), dtype=f64, device=dev)
+    conn_t = torch.as_tensor(np.asarray(conn), dtype=torch.int64, device=dev)
+    u3 = torch.as_tensor(np.asarray(u), dtype=f64, device=dev).reshape(-1, 3)
+    Ct = torch.as_tensor(np.asarray(C), dtype=f64, device=dev)
+    nodal = torch.zeros((pts.shape[0], 6), dtype=f64, device=dev)
+    for e0 in range(0, conn_t.shape[0], chunk):
+        c = conn_t[e0:e0 + chunk]
+        dN, _, _ = tet10_el.jacobians(pts[c])
+        _, stress = tet10_el.element_strain_stress(dN, Ct, u3[c])
+        es = stress.mean(dim=1)  # (e, 6) element average
+        for k in range(10):
+            nodal.index_add_(0, c[:, k], es)
+    counts = torch.bincount(conn_t.reshape(-1), minlength=pts.shape[0]).to(f64)
+    nodal /= counts.clamp(min=1.0)[:, None]
+    return nodal.cpu().numpy(), tet10_el.von_mises(nodal).cpu().numpy()
 
 
 class SolidReactionAnalysis:
@@ -64,6 +110,8 @@ class SolidReactionAnalysis:
 
     DENSE_DOF_LIMIT = 6000  # below: dense Cholesky; above: matrix-free PCG
     MG_DOF_THRESHOLD = 150_000  # above: multigrid (structured or lattice) PCG
+    # total CG iterations of a checkpointed solve, resumed ones included
+    CHECKPOINT_MAXITER = 50_000
 
     def __init__(
         self,
@@ -79,6 +127,7 @@ class SolidReactionAnalysis:
         verbose: bool = True,
         devices: Optional[int] = None,
         checkpoint: Optional[str] = None,
+        checkpoint_chunk: int = 500,
         unstructured_operator: Optional[str] = None,
         structured_apply: Optional[str] = None,
         device=None,
@@ -92,8 +141,6 @@ class SolidReactionAnalysis:
                 f"unstructured_operator={uop!r} is not ported yet (ROADMAP A11)")
         if (devices or 0) > 1:
             raise NotImplementedError("devices=N is not ported yet (ROADMAP A15)")
-        if checkpoint is not None:
-            raise NotImplementedError("checkpoint= is not ported yet (ROADMAP A9)")
         if structured_apply not in (None, "slot"):
             raise NotImplementedError(
                 f"structured_apply={structured_apply!r} is not ported yet "
@@ -113,6 +160,11 @@ class SolidReactionAnalysis:
         self.verbose = verbose
         self.unstructured_operator = uop
         self.structured_apply = "slot"
+        # checkpoint=PATH: the structured and transpose-gather solves run in
+        # `checkpoint_chunk`-iteration CG segments, persisting (x, iterations)
+        # to PATH between them; a later analysis on the same PATH resumes
+        self.checkpoint = checkpoint
+        self.checkpoint_chunk = int(checkpoint_chunk)
 
         self.pd = 3
         self.u: Optional[np.ndarray] = None
@@ -124,6 +176,8 @@ class SolidReactionAnalysis:
         self.operator = None
         self.solve_info: dict = {}
         self.stage_times: dict = {}
+        self._precond = None  # what solve() preconditioned with (None: dense)
+        self._op64 = None  # the float64 operator of the solve (float32 routes: assembled in f64)
 
         self._read_mesh()
         self.C = material_matrix(self.E, self.v)
@@ -238,11 +292,7 @@ class SolidReactionAnalysis:
                 self._log(f"   - Multigrid unavailable ({e}); "
                           "falling back to block-Jacobi PCG.")
         if precond is None:
-            binv = [torch.as_tensor(b, device=dev) for b in op.block_jacobi_tensors()]
-
-            def precond(r):
-                return op.apply_block_jacobi(binv, r)
-
+            precond = StructuredBlockJacobi(op)
             method = "structured_block_jacobi_pcg"
         self.operator = op
         self._precond = precond
@@ -259,19 +309,48 @@ class SolidReactionAnalysis:
             op64 = StructuredSolidOperator.from_mesh(
                 self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
                 device=dev).with_free_mask(m_int)
-            res = pcg_mixed(op64.apply_constrained, f_int, precond, tol=self.cg_tol,
-                            maxiter=10000)
             method += "_mixed"
         else:
             op64 = op
-            res = pcg(op.apply_constrained, f_int, M_inv_diag=precond,
-                      tol=self.cg_tol, maxiter=10000)
+        self._op64 = op64
+        res, resumed = self._run_cg(op64, f_int, precond, mixed=dtype == np.float32)
         u_int = res.x  # float64 in both branches
         r_int = op64.apply(u_int)  # reactions r = K u, unconstrained K
         u_host = u_int.cpu().numpy()
         r_host = r_int.cpu().numpy()
-        self.solve_info = {
-            "method": method,
+        self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
+        self.u = op.to_global(u_host)
+        self._log("   - System solved.")
+        self.reaction_forces = op.to_global(r_host)
+        self.stage_times["solve"] = time.perf_counter() - t0
+
+    def _run_cg(self, op64, f, precond, mixed: bool):
+        """The CG of the matrix-free routes: float64 CG on op64, with the
+        float32 preconditioner through pcg_mixed when `mixed`; with
+        checkpoint= in chunks persisted to the file (femx's _solve_chunked).
+        Returns (CGResult, iterations resumed from the file, or None without
+        checkpoint=)."""
+        def run(fv, maxiter, x0=None, r0=None, p0=None):
+            if mixed:
+                return pcg_mixed(op64.apply_constrained, fv, precond, tol=self.cg_tol,
+                                 maxiter=maxiter, x0=x0, r0=r0, p0=p0)
+            return pcg(op64.apply_constrained, fv, M_inv_diag=precond, x0=x0,
+                       tol=self.cg_tol, maxiter=maxiter, r0=r0, p0=p0)
+
+        if not self.checkpoint:
+            return run(f, 10000), None
+        arrays, meta = ckpt.load_state(self.checkpoint)
+        resumed = int((meta or {}).get("iterations", 0)) if arrays is not None else 0
+        res = ckpt.pcg_checkpointed(
+            op64.apply_constrained, f, tol=self.cg_tol, maxiter=self.CHECKPOINT_MAXITER,
+            chunk=self.checkpoint_chunk, checkpoint_path=self.checkpoint,
+            verbose=self.verbose,
+            solve_chunk=lambda fv, x0, r0, p0: run(fv, self.checkpoint_chunk, x0, r0, p0))
+        return res, resumed
+
+    def _solve_info(self, method, res, resumed, t0, t_pre) -> dict:
+        info = {
+            "method": method if resumed is None else method + "_checkpointed",
             "iterations": int(res.iterations),
             "residual": float(res.residual_norm),
             "converged": bool(res.converged),
@@ -279,10 +358,9 @@ class SolidReactionAnalysis:
             "solve_s": round(time.perf_counter() - t0 - t_pre, 3),
             "structured_apply": self.structured_apply,
         }
-        self.u = op.to_global(u_host)
-        self._log("   - System solved.")
-        self.reaction_forces = op.to_global(r_host)
-        self.stage_times["solve"] = time.perf_counter() - t0
+        if resumed is not None:
+            info.update(checkpoint=self.checkpoint, resumed_iterations=resumed)
+        return info
 
     def _solve_tg(self, t0: float) -> None:
         """The unstructured transpose-gather route (femx/analysis/solid.py:
@@ -315,7 +393,8 @@ class SolidReactionAnalysis:
             precond = BlockJacobiPrecond(bj_data)
         self._precond = precond
         t_pre = time.perf_counter() - t_pre
-        if op.dtype == torch.float32:
+        mixed = op.dtype == torch.float32
+        if mixed:
             # f64 CG on the TG operator assembled in f64 from the mesh,
             # preconditioned in f32. femx refines against op.astype(float64)
             # (femx/analysis/solid.py:722), whose f32-rounded geometry factors
@@ -325,23 +404,12 @@ class SolidReactionAnalysis:
                 self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
                 dtype=np.float64, device=self.device)
             op64 = op64.with_free_mask(m_int)
-            res = pcg_mixed(op64.apply_constrained, f64_int, precond, tol=self.cg_tol,
-                            maxiter=10000)
-            method = prefix + "_pcg_mixed"
         else:
             op64 = op
-            res = pcg(op.apply_constrained, f64_int, M_inv_diag=precond, tol=self.cg_tol,
-                      maxiter=10000)
-            method = prefix + "_pcg"
-        self.solve_info = {
-            "method": method,
-            "iterations": int(res.iterations),
-            "residual": float(res.residual_norm),
-            "converged": bool(res.converged),
-            "precond_setup_s": round(t_pre, 3),
-            "solve_s": round(time.perf_counter() - t0 - t_pre, 3),
-            "structured_apply": self.structured_apply,
-        }
+        self._op64 = op64
+        res, resumed = self._run_cg(op64, f64_int, precond, mixed)
+        method = prefix + ("_pcg_mixed" if mixed else "_pcg")
+        self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
         self.u = op.to_global(res.x.cpu().numpy())
         self.reaction_forces = op.to_global(op64.apply(res.x).cpu().numpy())
 
@@ -353,6 +421,7 @@ class SolidReactionAnalysis:
         op = self.operator.with_free_mask(self.constraints.free_mask())
         self.operator = op
         f = torch.as_tensor(self.f, dtype=op.dtype, device=self.device)
+        self._op64 = op
         if self.solver == "dense" or (self.solver == "auto" and ndof <= self.DENSE_DOF_LIMIT):
             K = assemble_dense(op.element_stiffness(), dof_map(op.conn, 3), ndof)
             u = solve_dense(K, f, free_mask=op.free_mask)
@@ -371,6 +440,177 @@ class SolidReactionAnalysis:
             }
         self.u = u.cpu().numpy()
         self.reaction_forces = op.apply(u).cpu().numpy()
+
+    def _stored_precond(self):
+        """The preconditioner of solve(), and the CG iteration cap femx
+        gives it in solve_cases: 10,000 for the multigrid and lattice
+        preconditioners, 20,000 for block-Jacobi. The dense route stored
+        none: the generic operator's block-Jacobi (femx:1361-1365)."""
+        pre = self._precond
+        if isinstance(pre, (StructuredMultigrid, LatticePreconditioner)):
+            return pre, 10000
+        if pre is None:
+            pre = self.operator.block_jacobi_preconditioner()
+        return pre, 20000
+
+    def solve_cases(self, force_cases, tol: Optional[float] = None) -> np.ndarray:
+        """Solve K u = f_k for several independent load cases, reusing the
+        operator and the preconditioner that solve() built; the cases run
+        one after another (femx: one compiled lax.map over the same
+        per-case solve).
+
+        Args:
+          force_cases: list of force_data lists (the constructor's format);
+            the fixes stay those of the analysis.
+          tol: relative residual per case (default: the analysis cg_tol).
+        Returns (n_cases, 3N) float64 displacements in global DOF order;
+        per-case iterations/residuals are stored as self.case_solve_info.
+
+        float32 analyses solve their cases as solve() does: float64 CG on the
+        float64-assembled operator with the float32 preconditioner. femx runs
+        float32 CG on the float32 operator, floored at 1e-5, whose answers
+        miss the float64 solution by percents on point-supported boxes
+        (ROADMAP Queue 3; tests/test_torch_solid_extras.py).
+        """
+        if self.u is None:
+            raise RuntimeError("Run the analysis (solve) before solve_cases().")
+        op = self.operator  # free mask set by solve()
+        mixed = torch_dtype(op.dtype) == torch.float32
+        t = float(self.cg_tol if tol is None else tol)
+        mask_g = self.constraints.free_mask()
+        # the generic operator works in global DOF order directly
+        to_int = getattr(op, "to_internal", lambda v: v)
+        to_glob = getattr(op, "to_global", lambda v: v)
+        pre, maxiter = self._stored_precond()
+        us, infos = [], []
+        for case in force_cases:
+            fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
+            f = torch.as_tensor(to_int(fg), dtype=torch.float64, device=self.device)
+            if mixed:
+                r = pcg_mixed(self._op64.apply_constrained, f, pre, tol=t, maxiter=maxiter)
+            else:
+                r = pcg(op.apply_constrained, f, M_inv_diag=pre, tol=t, maxiter=maxiter)
+            us.append(to_glob(r.x.cpu().numpy()))
+            infos.append({"iterations": int(r.iterations), "residual": float(r.residual_norm),
+                          "converged": bool(r.residual_norm <= t)})
+        self.case_solve_info = infos
+        return np.stack(us)
+
+    def compute_stresses(self):
+        """Per-node averaged stress tensors + von Mises field (postprocess):
+        Voigt stresses at the 4 Gauss points of every element, averaged per
+        element and then to the nodes (`nodal_stresses`, on the analysis'
+        device). Returns (nodal_stress (N, 6), nodal_von_mises (N,)), host
+        float64, also stored as self.nodal_stress / self.nodal_von_mises."""
+        if self.u is None:
+            raise RuntimeError("Run the analysis first.")
+        nodal, vm = nodal_stresses(self.points, self.tetra10_conn, self.u, self.C,
+                                   device=self.device)
+        self.nodal_stress = nodal
+        self.nodal_von_mises = vm
+        return nodal, vm
+
+    def _lumped_mass(self, rho: float) -> np.ndarray:
+        """(3N,) HRZ-lumped mass diagonal in the operator's layout (host
+        float64): the structured operator's own, else element_mass_lumped
+        summed to the nodes on the device."""
+        op = self.operator
+        if self._structured:
+            return op.lumped_mass_diagonal(rho)
+        conn = torch.as_tensor(np.asarray(self.tetra10_conn), dtype=torch.int64,
+                               device=self.device)
+        pts = torch.as_tensor(np.asarray(self.points), dtype=torch.float64, device=self.device)
+        ml = tet10_el.element_mass_lumped(pts[conn], rho)  # (E, 10)
+        m_node = torch.zeros(self.num_nodes, dtype=torch.float64, device=self.device)
+        m_node.index_add_(0, conn.reshape(-1), ml.reshape(-1))
+        m_dof = np.repeat(m_node.cpu().numpy(), 3)
+        return op.to_internal(m_dof) if isinstance(op, SolidOperatorTG) else m_dof
+
+    def modal(self, n_modes: int = 10, rho: float = 7850.0, tol: float = 1e-6,
+              maxiter: int = 100, inner_tol: Optional[float] = None,
+              refine: bool = False) -> ModalResult:
+        """First n_modes natural frequencies/shapes of the constrained solid.
+
+        Mass is HRZ-lumped Tet10 (exact element totals); the eigensolver is
+        shift-invert Lanczos (femx_torch.modal) whose inner K-solves are PCG
+        on the analysis' operator, in its dtype, with the preconditioner
+        solve() built (inner_tol default max(cg_tol, 1e-6), at most 4,000
+        iterations each).
+
+        refine=True then runs shift_invert_refine: one inverse-iteration
+        step + Rayleigh-Ritz through accurate solves (2 * n_modes of them):
+        float64 operators PCG to 1e-11 (at most 6,000 iterations); float32
+        operators float64 CG to 1e-9 on the float64-assembled operator with
+        the float32 preconditioner (pcg_mixed; femx refines against the
+        float32 operator cast up); the small-mesh operator the inner solve.
+        The per-mode relative-eigenvalue Ritz bounds go to
+        self.modal_error_bounds.
+
+        Requires solve(). Returns ModalResult with omega (rad/s, ascending)
+        and mass-orthonormal mode shapes in global (3*node+comp) DOF order,
+        also stored as self.modal_result; the Lanczos and inner iteration
+        counts are in self.modal_info.
+        """
+        if self.u is None:
+            raise RuntimeError("Run the analysis (solve) before modal().")
+        op = self.operator
+        if inner_tol is None:
+            inner_tol = max(self.cg_tol, 1e-6)
+        m_use = self._lumped_mass(rho)
+        free = (op.free_mask_host if self._structured
+                else op.free_mask.cpu().numpy().astype(np.float64))
+        pre, _ = self._stored_precond()
+        res = modal_shift_invert(None, m_use, free, n_modes=n_modes, tol=tol,
+                                 maxiter=maxiter,
+                                 solver_state=(op, pre, float(inner_tol), 4000))
+        self.modal_info = {"iterations": res.iterations,
+                           "inner_iterations": res.inner_iterations,
+                           "refine_iterations": None}
+        if refine:
+            if not (self._structured or isinstance(op, SolidOperatorTG)):
+                def ks_acc(b):  # the small-mesh operator: the inner solve (femx)
+                    return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=inner_tol,
+                               maxiter=4000)
+            elif torch_dtype(op.dtype) == torch.float32:
+                op64 = self._op64
+
+                def ks_acc(b):
+                    return pcg_mixed(op64.apply_constrained, b, pre, tol=1e-9, maxiter=6000)
+            else:
+                def ks_acc(b):
+                    return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=1e-11,
+                               maxiter=6000)
+            res = self._refine_modal(res, ks_acc, m_use)
+        if self._structured or isinstance(op, SolidOperatorTG):
+            modes = res.modes.cpu().numpy()
+            modes = np.stack([op.to_global(modes[:, i]) for i in range(modes.shape[1])],
+                             axis=1)
+            res = res._replace(modes=torch.as_tensor(modes, device=self.device))
+        self.modal_result = res
+        self._log("   - Modal: f = "
+                  + ", ".join(f"{w / (2 * np.pi):.3f}" for w in res.omega.cpu().numpy())
+                  + " Hz")
+        if refine:
+            self._log("   - Refined (Ritz bound max "
+                      f"{float(np.max(self.modal_error_bounds)):.1e} on the "
+                      "relative eigenvalue error)")
+        return res
+
+    def _refine_modal(self, res: ModalResult, ks_acc, m_diag) -> ModalResult:
+        """Inverse-iteration + Rayleigh-Ritz refinement of a ModalResult in
+        the operator's layout; stores the per-mode Ritz bounds and the
+        accurate solves' iteration counts."""
+        its = []
+
+        def solve(b):
+            r = ks_acc(b)
+            its.append(r.iterations)
+            return r.x
+
+        om_ref, eta, modes_ref = shift_invert_refine(solve, m_diag, res.modes)
+        self.modal_error_bounds = eta.cpu().numpy()
+        self.modal_info["refine_iterations"] = its
+        return res._replace(omega=om_ref.to(res.omega.dtype), modes=modes_ref.to(res.modes.dtype))
 
     def print_reactions(self) -> None:
         """Console reaction table + equilibrium check

@@ -82,6 +82,10 @@ class SolidOperator:
     def dtype(self) -> torch.dtype:
         return self.dN.dtype
 
+    @property
+    def device(self) -> torch.device:
+        return self.dN.device
+
     def with_free_mask(self, free_mask) -> "SolidOperator":
         return dataclasses.replace(self, free_mask=torch.tensor(
             np.asarray(free_mask), dtype=self.dtype, device=self.dN.device))

@@ -32,9 +32,9 @@ from femx_torch.config import numpy_dtype, resolve_device, torch_dtype
 from femx_torch.elements.cell_matmul import (
     _SLOTS, phase_offsets, phase_shapes, split_phases, structured_cell_matmul)
 from femx_torch.elements.tet10 import (
-    DN_NATURAL, GAUSS_WEIGHT_CORRECT, _SEL, material_matrix)
+    DN_NATURAL, GAUSS_WEIGHT_CORRECT, MASS_HAT, _SEL, material_matrix)
 
-__all__ = ["StructuredSolidOperator", "constrained_block_inverse"]
+__all__ = ["StructuredSolidOperator", "StructuredBlockJacobi", "constrained_block_inverse"]
 
 
 def _cell_stiffness(spacing, E_mod, nu, weight, dtype) -> np.ndarray:
@@ -64,6 +64,28 @@ def _cell_stiffness(spacing, E_mod, nu, weight, dtype) -> np.ndarray:
     np.add.at(K, (edof[:, :, None], edof[:, None, :]), ke)
     K = 0.5 * (K + K.T)  # exact symmetry before a low-precision cast
     return K.astype(dtype)
+
+
+def _cell_lumped_mass(spacing, rho) -> np.ndarray:
+    """(27,) HRZ-lumped nodal masses of one structured cell (6 straight
+    Tet10 elements), raster slot order, host float64. Exact per-cell total:
+    rho * hx*hy*hz."""
+    from femx_torch.mesh.generators import box_tet10
+
+    hx, hy, hz = (float(s) for s in spacing)
+    cell = box_tet10(hx, hy, hz, mesh_size=max(hx, hy, hz) * 1.01)
+    if cell.num_nodes != 27:
+        raise ValueError(f"single-cell mesh has {cell.num_nodes} nodes, not 27")
+    conn = np.asarray(cell.cells["tetra10"])  # (6, 10)
+    pts = np.asarray(cell.points, dtype=np.float64)
+    c0 = pts[conn[:, 0]]
+    vol = np.abs(np.einsum("ei,ei->e", pts[conn[:, 1]] - c0,
+                           np.cross(pts[conn[:, 2]] - c0, pts[conn[:, 3]] - c0))) / 6.0
+    frac = np.diag(MASS_HAT) / np.diag(MASS_HAT).sum()  # (10,), sums to 1
+    lumped = float(rho) * vol[:, None] * frac[None, :]  # (6, 10)
+    out = np.zeros(27)
+    np.add.at(out, conn.reshape(-1), lumped.reshape(-1))
+    return out
 
 
 def _inv3x3_np(A: np.ndarray) -> np.ndarray:
@@ -321,6 +343,44 @@ class StructuredSolidOperator:
             grids[pidx][ia:ia + nx, jb:jb + ny, kc:kc + nz] += contrib
         return np.concatenate([g.reshape(-1, 3, 3) for g in grids])
 
+    def diagonal(self) -> np.ndarray:
+        """diag(K) in internal layout (components grouped per phase), host
+        numpy."""
+        bd = self.block_diagonal_internal()
+        parts = []
+        pos = 0
+        for s in self._phase_shapes():
+            cnt = s[0] * s[1] * s[2]
+            blk = bd[pos:pos + cnt]
+            pos += cnt
+            parts.append(np.stack([blk[:, c, c] for c in range(3)]).reshape(-1))
+        return np.concatenate(parts)
+
+    def constrained_diagonal(self) -> np.ndarray:
+        """diag of the constrained operator: diag(K) on free DOFs, 1 on
+        fixed ones (host numpy)."""
+        s = self.free_mask_host
+        return self.diagonal() * s + (1.0 - s)
+
+    def lumped_mass_diagonal(self, rho: float) -> np.ndarray:
+        """(ndof,) HRZ-lumped mass diagonal, internal layout, host float64.
+
+        Every cell contributes the same (27,) slot masses, scaled by its
+        layer weights, so assembly is one overlap-add per slot. Total mass
+        is rho * box volume per component."""
+        if self.spacing is None:
+            raise ValueError("operator has no spacing metadata (needed for mass)")
+        nx, ny, nz = self.n_cells
+        mcell = _cell_lumped_mass(self.spacing, rho)
+        cw = self._cell_weight_host()
+        cw = 1.0 if cw is None else cw
+        grids = [np.zeros(s) for s in self._phase_shapes()]
+        for s_idx, (a, b, c) in enumerate(_SLOTS):
+            pidx = (a % 2) * 4 + (b % 2) * 2 + (c % 2)
+            ia, jb, kc = a // 2, b // 2, c // 2
+            grids[pidx][ia:ia + nx, jb:jb + ny, kc:kc + nz] += mcell[s_idx] * cw
+        return np.concatenate([np.broadcast_to(g, (3,) + g.shape).reshape(-1) for g in grids])
+
     def block_jacobi_tensors(self) -> List[np.ndarray]:
         """Per-phase (3, 3, cnt) inverse nodal blocks (host numpy, once)."""
         bd = self.block_diagonal_internal()
@@ -350,6 +410,20 @@ class StructuredSolidOperator:
             # row i: B[i,0] r0 + B[i,1] r1 + B[i,2] r2, the reference's order
             outs.append((B[:, 0] * rp[0] + B[:, 1] * rp[1] + B[:, 2] * rp[2]).reshape(-1))
         return torch.cat(outs)
+
+
+class StructuredBlockJacobi:
+    """The structured operator's block-Jacobi preconditioner r -> M^-1 r:
+    its per-phase inverse blocks on the operator's device (femx keeps them
+    as the ("st_bj", tensors) pair that solve_cases and modal dispatch on)."""
+
+    def __init__(self, op: StructuredSolidOperator):
+        self.op = op
+        self.tensors = [torch.as_tensor(b, device=op.device)
+                        for b in op.block_jacobi_tensors()]
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.op.apply_block_jacobi(self.tensors, r)
 
 
 def constrained_block_inverse(bd: np.ndarray, mask3: np.ndarray) -> np.ndarray:

@@ -8,7 +8,8 @@ kernels as torch einsums on the caller's device:
   Ke[(i,c),(j,d)] = sum_g w*detJ_g * dN_g[k,i] * Chat[c,k,d,l] * dN_g[l,j]
   with Chat[c,k,d,l] = Sel[a,c,k] C[a,b] Sel[b,d,l]
 
-The mass and stress terms of femx's module wait for the modal slice.
+plus the exact straight-sided Tet10 mass terms (consistent and HRZ-lumped)
+and the Gauss-point strain/stress and von Mises postprocessing.
 """
 
 from __future__ import annotations
@@ -143,3 +144,97 @@ def element_apply(dN, wdet, C, ue, weight=GAUSS_WEIGHT_CORRECT):
     strain = torch.einsum("ack,egkc->ega", sel, grad)
     stress = torch.einsum("ab,egb->ega", C, strain)
     return torch.einsum("egkn,ack,ega,eg->enc", dN, sel, stress, weight * wdet)
+
+
+def element_strain_stress(dN, C, ue):
+    """Per-Gauss-point strain and stress tensors (Voigt) for postprocessing:
+    dN (E, 4, 3, 10), C (6, 6), ue (E, 10, 3) -> (E, 4, 6) each."""
+    sel = _const(_SEL, ue)
+    C = _const(C, ue)
+    grad = torch.einsum("egkn,enc->egkc", dN, ue)
+    strain = torch.einsum("ack,egkc->ega", sel, grad)
+    stress = torch.einsum("ab,egb->ega", C, strain)
+    return strain, stress
+
+
+def von_mises(stress):
+    """Von Mises stress from Voigt [xx,yy,zz,xy,yz,zx] stresses (..., 6)."""
+    sxx, syy, szz = stress[..., 0], stress[..., 1], stress[..., 2]
+    sxy, syz, szx = stress[..., 3], stress[..., 4], stress[..., 5]
+    return torch.sqrt(
+        0.5 * ((sxx - syy) ** 2 + (syy - szz) ** 2 + (szz - sxx) ** 2)
+        + 3.0 * (sxy**2 + syz**2 + szx**2))
+
+
+def _mass_matrix_hat() -> np.ndarray:
+    """Mhat[i,j] = (1/V) * integral(N_i N_j dV) over a straight-sided Tet10,
+    exact: each shape function is a quadratic in the barycentric coordinates
+    (N_corner_i = L_i(2L_i - 1), N_edge_ij = 4 L_i L_j), and
+
+        integral(L1^a L2^b L3^c L4^d dV) = 6V * a! b! c! d! / (a+b+c+d+3)!
+
+    so Mhat is dimensionless and geometry-independent (host float64)."""
+    from math import factorial
+
+    def corner(i):
+        e2 = [0, 0, 0, 0]
+        e2[i] = 2
+        e1 = [0, 0, 0, 0]
+        e1[i] = 1
+        return {tuple(e2): 2.0, tuple(e1): -1.0}
+
+    def edge(i, j):
+        e = [0, 0, 0, 0]
+        e[i] += 1
+        e[j] += 1
+        return {tuple(e): 4.0}
+
+    # gmsh Tet10 node order, as DN_NATURAL
+    shapes = [corner(i) for i in range(4)] + [
+        edge(0, 1), edge(1, 2), edge(0, 2), edge(0, 3), edge(1, 3), edge(2, 3)]
+
+    def integral(mono):  # integral(prod L^e dV) / V
+        num = 6.0
+        for e in mono:
+            num *= factorial(e)
+        return num / factorial(sum(mono) + 3)
+
+    M = np.zeros((10, 10))
+    for i in range(10):
+        for j in range(i, 10):
+            acc = 0.0
+            for ei, ci in shapes[i].items():
+                for ej, cj in shapes[j].items():
+                    acc += ci * cj * integral(tuple(a + b for a, b in zip(ei, ej)))
+            M[i, j] = M[j, i] = acc
+    return M
+
+
+MASS_HAT = _mass_matrix_hat()  # (10, 10), exact, straight-sided tets
+
+
+def element_volume(coords: torch.Tensor) -> torch.Tensor:
+    """Signed volumes (E,) of straight tets from their 4 corner nodes."""
+    v1 = coords[:, 1, :] - coords[:, 0, :]
+    v2 = coords[:, 2, :] - coords[:, 0, :]
+    v3 = coords[:, 3, :] - coords[:, 0, :]
+    return (v1 * torch.linalg.cross(v2, v3)).sum(-1) / 6.0
+
+
+def element_mass_consistent(coords: torch.Tensor, rho) -> torch.Tensor:
+    """Batched exact consistent mass (E, 30, 30) of straight-sided Tet10s:
+    Me[(i,c),(j,d)] = rho * V * Mhat[i,j] * delta_cd, DOF order node-major /
+    xyz-minor (element_stiffness's)."""
+    V = element_volume(coords)
+    m_node = rho * V[:, None, None] * _const(MASS_HAT, V)  # (E, 10, 10)
+    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
+    return torch.einsum("eij,cd->eicjd", m_node, eye3).reshape(-1, 30, 30)
+
+
+def element_mass_lumped(coords: torch.Tensor, rho) -> torch.Tensor:
+    """Batched HRZ-lumped nodal masses (E, 10): the consistent mass's
+    diagonal scaled so each element keeps its total rho*V (row-sum lumping
+    would go negative on Tet10 corners)."""
+    d = np.diag(MASS_HAT)
+    V = element_volume(coords)
+    return rho * V[:, None] * _const(d / d.sum(), V)

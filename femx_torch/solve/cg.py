@@ -17,6 +17,10 @@ class CGResult(NamedTuple):
     iterations: int
     residual_norm: float  # ||b - A x|| / ||b||
     converged: bool
+    # pcg's recurrence state at exit (residual and search direction), from
+    # which pcg(..., x0=x, r0=r, p0=p) continues as if never stopped
+    r: Optional[torch.Tensor] = None
+    p: Optional[torch.Tensor] = None
 
 
 def _as_precond(M_inv) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -34,6 +38,8 @@ def pcg(
     x0: Optional[torch.Tensor] = None,
     tol: float = 1e-8,
     maxiter: int = 10000,
+    r0: Optional[torch.Tensor] = None,
+    p0: Optional[torch.Tensor] = None,
 ) -> CGResult:
     """Preconditioned CG for SPD A.
 
@@ -43,6 +49,9 @@ def pcg(
       M_inv_diag: preconditioner — an inverse diagonal tensor (Jacobi) or a
         callable r -> M^-1 r; identity if None.
       tol: relative residual target ||r|| <= tol * ||b||.
+      r0, p0: with x0, a previous call's exit state (CGResult.r, .p): the
+        recurrences continue from it (no initial residual apply), giving
+        the iterates of one uninterrupted run.
 
     The stopping test and breakdown guards are femx's: continue while
     ||r||^2 is finite, r.z > 0, ||r||^2 > (tol ||b||)^2 and k < maxiter;
@@ -55,9 +64,14 @@ def pcg(
     bnorm_safe = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     atol2 = (tol * bnorm_safe) ** 2
 
-    r = b - A(x)
-    z = Minv(r)
-    p = z
+    if r0 is None:
+        r = b - A(x)
+        z = Minv(r)
+        p = z
+    else:
+        r = r0.clone()
+        z = Minv(r)
+        p = p0.clone()
     rz = torch.dot(r, z)
     k = 0
     while k < maxiter:
@@ -79,7 +93,7 @@ def pcg(
         rz = rz_new
         k += 1
     res = float(torch.sqrt(torch.dot(r, r)) / bnorm_safe)
-    return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol)
+    return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol, r=r, p=p)
 
 
 def fcg(
@@ -204,6 +218,9 @@ def pcg_mixed(
     tol: float = 1e-8,
     maxiter: int = 10000,
     low_dtype: torch.dtype = torch.float32,
+    x0: Optional[torch.Tensor] = None,
+    r0: Optional[torch.Tensor] = None,
+    p0: Optional[torch.Tensor] = None,
 ) -> CGResult:
     """High-precision PCG with a low-precision preconditioner
     (femx.solve.cg.pcg_mixed): the CG recurrences, the operator and the
@@ -213,8 +230,11 @@ def pcg_mixed(
     Unlike pcg_refined, the Krylov method runs on the exact high-precision
     operator, so the low-precision operator inside the preconditioner may
     differ from it (a float32-rounded cell matrix) and only the rate pays.
+    x0 (with r0, p0: pcg's exit state) resumes it, as pcg does (the chunks
+    of a checkpointed solve).
     """
     def minv(r):
         return M_inv_low(r.to(low_dtype)).to(b_high.dtype)
 
-    return pcg(A_high, b_high, M_inv_diag=minv, tol=tol, maxiter=maxiter)
+    return pcg(A_high, b_high, M_inv_diag=minv, x0=x0, tol=tol, maxiter=maxiter, r0=r0,
+               p0=p0)

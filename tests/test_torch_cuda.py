@@ -372,3 +372,75 @@ def test_unstructured_solve_matches_cpu(cuda, tmp_path):
     R = [r.reaction_forces for r in runs]
     np.testing.assert_allclose(R[1], R[0], rtol=1e-7, atol=np.abs(R[0]).max() * 1e-8)
     np.testing.assert_allclose(runs[1].equilibrium_residual(), 0.0, atol=1e-6)
+
+
+def _cantilever_mg(device, dtype):
+    """A (4, 4, 8)-cell cantilever, its z=0 face clamped, with its V-cycle."""
+    from femx_torch.solve.multigrid import StructuredMultigrid
+
+    mesh = femx_torch.box_tet10(0.2, 0.2, 0.4, mesh_size=0.05)
+    mask = np.ones(3 * mesh.num_nodes)
+    mask[(3 * np.where(mesh.points[:, 2] < 1e-9)[0][:, None] + np.arange(3)).ravel()] = 0.0
+    op = StructuredSolidOperator.from_mesh(mesh, 2e11, 0.3, dtype=dtype, device=device)
+    op = op.with_free_mask(op.to_internal(mask))
+    mg = StructuredMultigrid(None, (4, 4, 8), 2e11, 0.3, mask, dtype=dtype, fine_op=op,
+                             spacing=mesh.structured.spacing, device=device)
+    return op, mg
+
+
+@pytest.mark.parametrize("dtype,inner_tol,rtol", [(np.float64, 1e-10, 1e-8),
+                                                  (np.float32, 1e-6, 1e-4)])
+def test_modal_shift_invert_matches_cpu(cuda, dtype, inner_tol, rtol):
+    """Shift-invert Lanczos with MG-PCG inner solves (the cell kernel on
+    every level) on the card against the same call on the CPU, from the
+    same start vector."""
+    from femx_torch.modal import solid_modal_structured
+
+    v0 = np.random.default_rng(3).standard_normal(3 * 9 * 9 * 17)
+    runs = []
+    for d in ("cpu", cuda):
+        op, mg = _cantilever_mg(d, dtype)
+        before = cm.LAUNCHES[np.dtype(dtype).name]
+        runs.append(solid_modal_structured(op, mg, 7850.0, n_modes=6, inner_tol=inner_tol,
+                                           inner_maxiter=400, tol=1e-8, maxiter=60, v0=v0))
+        assert (cm.LAUNCHES[np.dtype(dtype).name] > before) == (d != "cpu")
+    assert runs[1].omega.device.type == "cuda"
+    np.testing.assert_allclose(runs[1].omega.cpu().numpy(), runs[0].omega.numpy(), rtol=rtol)
+
+
+def test_compute_stresses_matches_cpu(cuda):
+    from femx_torch.analysis.solid import nodal_stresses
+    from femx_torch.elements.tet10 import material_matrix
+
+    mesh = femx_torch.box_tet10(0.3, 0.2, 0.4, 0.05)
+    u = np.random.default_rng(4).standard_normal(3 * mesh.num_nodes) * 1e-4
+    args = (mesh.points, mesh.cells["tetra10"], u, material_matrix(2e11, 0.3))
+    for got, want in zip(nodal_stresses(*args, device=cuda, chunk=1000),
+                         nodal_stresses(*args, device="cpu")):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=np.abs(want).max() * 1e-12)
+
+
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """checkpoint= on the card: a run cut at 200 iterations, then a second
+    analysis that resumes from the file, to the CPU's uncheckpointed u."""
+    corners = [(0, 0, 0), (0.15, 0, 0), (0, 0, 0.3), (0.15, 0, 0.3)]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in corners]
+    force = [{"force_x": 0, "force_y": -500.0, "force_z": 0, "force_x_pstn": 0.075,
+              "force_y_pstn": 0.15, "force_z_pstn": 0.15}]
+    path = str(tmp_path / "state")
+
+    def run(device, maxiter=None, **kw):
+        mesh = femx_torch.box_tet10(0.15, 0.15, 0.3, 0.05, fix_points=corners)
+        fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=2e11, v=0.3, cg_tol=1e-10,
+                                              verbose=False, device=device, **kw)
+        if maxiter is not None:
+            fa.CHECKPOINT_MAXITER = maxiter
+        return fa.run_simulation()
+
+    want = run("cpu").u
+    first = run(cuda, 200, checkpoint=path, checkpoint_chunk=100)
+    assert not first.solve_info["converged"]
+    fa = run(cuda, checkpoint=path, checkpoint_chunk=100)
+    assert fa.solve_info["resumed_iterations"] == 200 and fa.solve_info["converged"]
+    np.testing.assert_allclose(fa.u, want, atol=np.abs(want).max() * 1e-7)

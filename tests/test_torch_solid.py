@@ -210,7 +210,7 @@ def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schem
 
 @pytest.mark.parametrize("kw,item", [
     (dict(devices=2), "A15"),
-    (dict(checkpoint="state.npz"), "A9"),
+    (dict(unstructured_operator="groupell"), "A11"),
     (dict(structured_apply="conv"), "A14"),
     (dict(unstructured_operator="cluster"), "A11"),
 ])
