@@ -26,7 +26,8 @@ Phases (any failure ends the run with a nonzero exit code):
                 V-cycle), then warm runs whose median is the accurate solve
                 time;
   7. bench    — bench.py's flow (face-clamped cantilever, StructuredMultigrid
-                + pcg to 1e-5, then pcg_refined to 1e-8) through the port;
+                + pcg to 1e-5, then pcg_refined to 1e-8) through
+                femx_torch.bench's functions;
   8. unstructured flagship — the same box relabelled with
                 default_rng(0).permutation, written with write_msh and solved
                 by SolidReactionAnalysis(path, dtype=float32, cg_tol=1e-8):
@@ -37,9 +38,9 @@ Phases (any failure ends the run with a nonzero exit code):
   9. take_rows against its plain version (exact) at that operator's
                 gathers, float32 and float64, then timed beside
                 index_select, its bytes bound and its sector bound;
- 10. unstructured bench — bench.py:223-308 with the TG operator: f32 pcg
-                with the lattice preconditioner to 1e-5, 17 +- 2 iterations,
-                profiled once;
+ 10. unstructured bench — bench.py:223-308 through femx_torch.bench with
+                the TG operator: f32 pcg with the lattice preconditioner to
+                1e-5, 17 +- 2 iterations, profiled once;
  11. small mesh files — the README default box from a .msh file (TG +
                 block-Jacobi, f64; reactions held to phase 5's) and a coarse
                 box of <= 6,000 DOF (dense Cholesky);
@@ -64,10 +65,25 @@ Phases (any failure ends the run with a nonzero exit code):
                 resumed by a second analysis; (d) modal(n_modes=6,
                 refine=True) on phase 11's mesh-file default (take_rows f64)
                 and phase 5's structured default (cell kernel f64), their
-                frequencies within 1e-6.
-Phases 5-8 and 10-13 each set the kernel launch counts to 0 just before
+                frequencies within 1e-6; (a) runs through femx_torch.bench;
+ 14. group-ELL and cluster — (a) phase 10's flow with the group-ELL, then
+                the cluster operator (17 +- 2 iterations; each operator's
+                K @ u held to the TG apply to 1e-5; launches per apply equal
+                to its take_rows calls per apply; assembly, setup, peak
+                device memory); (b) phase 8's relabelled flagship file
+                through SolidReactionAnalysis(dtype=float32,
+                unstructured_operator=...) for both: method, equilibrium
+                <= 1e-6 |F|, corner reactions within 1e-6 of phase 6's;
+                (c) FEMX_GROUPELL_SYM=1 once: the symmetric storage's apply
+                against the full storage (1e-5); (d) take_rows at the new
+                shapes (group-ELL's largest u16[ii] bucket, width 48; its
+                u6[pairperm], width 6; cluster's largest u3[nodes] class)
+                against its plain version (exact), timed beside
+                index_select with its bytes bound.
+Phases 5-8, 10-14 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
-count its iteration counts imply.
+count its iteration counts imply. The .msh file of phase 8 (read again
+in 14(b)) is written under build/chip_smoke/ and deleted at the end.
 The last two lines are a {"kernels": [...]} JSON object and the
 {"ok": true, "device": {...}} JSON object. Without CUDA it exits nonzero and
 prints no result.
@@ -417,39 +433,19 @@ def flagship_case(torch, femx_torch, warm_runs=3):
     return launches, warm, R, fa
 
 
-def bench_flow(torch, femx_torch):
-    """Phase 7: bench.py:64-145 through the port's modules; returns what
-    the end-to-end line reports and the f32 operator, its V-cycle and the
-    f64 operator (phase 13 reuses them)."""
-    from femx_torch.solve.cg import pcg, pcg_refined
-    from femx_torch.solve.multigrid import StructuredMultigrid
-
-    nx, ny, nz = FLAGSHIP
-    dims = (nx * H, ny * H, nz * H)
-    mesh = femx_torch.box_tet10(*dims, mesh_size=H)
-    ndof = 3 * mesh.num_nodes
-    mask = np.ones(ndof)
-    fixed = np.where(mesh.points[:, 2] < 1e-9)[0]
-    mask[(3 * fixed[:, None] + np.arange(3)).ravel()] = 0
-    f = np.zeros(ndof)
-    tip = np.where(mesh.points[:, 2] > dims[2] - 1e-9)[0]
-    f[3 * tip + 1] = -1000.0 / len(tip)
-
-    t_setup, mg = wall_s(lambda: StructuredMultigrid(dims, FLAGSHIP, E, NU, mask,
-                                                     dtype=np.float32, device=DEVICE))
-    op = mg.fine_op
-    f_int = op.to_internal(f * mask)
-    fj = torch.as_tensor(f_int.astype(np.float32), device=DEVICE)
-    f64j = torch.as_tensor(f_int, dtype=torch.float64, device=DEVICE)
-    op64 = op.astype(np.float64)
+def bench_flow(torch, bench):
+    """Phase 7: bench.py:64-145 through femx_torch.bench's functions; returns
+    what the end-to-end line reports and the flow's state (phase 13 reuses
+    its operators and V-cycle, phases 10 and 14 its problem)."""
+    problem = bench.flagship_problem(FLAGSHIP)
+    t_setup, sb = wall_s(lambda: bench.setup_structured(problem, np.float32, DEVICE))
+    mg = sb.mg
 
     def solve():
-        return pcg(op.apply_constrained, fj, M_inv_diag=mg, tol=1e-5, maxiter=200)
+        return bench.f32_solve(sb)
 
     def solve_refined():
-        return pcg_refined(op.apply_constrained, fj, M_inv_diag=mg, tol=1e-5, maxiter=200,
-                           refine_steps=6, A_residual=op64.apply_constrained,
-                           b_residual=f64j, outer_tol=1e-8)
+        return bench.refined_solve(sb)
 
     # every pcg call applies the f32 K once up front and once per iteration,
     # and runs one V-cycle up front and one per iteration, each of 5 applies
@@ -475,7 +471,7 @@ def bench_flow(torch, femx_torch):
     t_ref = statistics.median(t for t, _ in runs_r)
     out = {
         "launches_f32_solve": launches_f32, "launches_refined_solve": launches_ref,
-        "ndof": ndof, "levels": [lv.op.n_cells for lv in mg.levels],
+        "ndof": problem.ndof, "levels": [lv.op.n_cells for lv in mg.levels],
         "setup_s": t_setup, "first_solve_s": t_first, "f32_solve_s": t_f32,
         "f32_solve_runs_s": [t for t, _ in runs], "f32_iters": res.iterations,
         "f32_residual": res.residual_norm, "refined_solve_s": t_ref,
@@ -486,31 +482,24 @@ def bench_flow(torch, femx_torch):
     check(abs(res.iterations - 13) <= 2, f"f32 iterations {res.iterations} not 13 +- 2")
     check(res.converged and rr.converged and rr.residual_norm <= 1e-8,
           f"refined residual {rr.residual_norm}")
-    check(bool(torch.isfinite(rr.x).all()) and rr.x.shape == (ndof,), "bad refined x")
+    check(bool(torch.isfinite(rr.x).all()) and rr.x.shape == (problem.ndof,), "bad refined x")
 
     # one traced f32 solve: device time by kernel name
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = wall_s(solve)
-    events = prof.key_averages()
-    # kernel events only (the aten ops above them carry the same time again)
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    t_prof, device_ms, events = bench.profiled(solve, torch.device(DEVICE))
     log("   profile of one f32 MG-PCG solve (top kernels by device time):")
     log(events.table(sort_by="self_cuda_time_total", row_limit=14))
     out.update(profiled_solve_s=t_prof, profiled_device_ms=device_ms)
     log(f"   profiled solve: {t_prof * 1e3:.1f} ms wall, {device_ms:.1f} ms device time "
         f"-> device idle {100 * (1 - device_ms / (t_prof * 1e3)):.1f} % (unprofiled wall "
         f"{t_f32 * 1e3:.1f} ms -> idle {100 * (1 - device_ms / (t_f32 * 1e3)):.1f} %)")
-    return out, (op, mg, op64)
+    return out, sb
 
 
 def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
     """Phase 8: the flagship box, relabelled and read back from a .msh file,
     through the transpose-gather + lattice-MG route; returns the launch
-    counts, the analysis and what the end-to-end line reports."""
+    counts, the analysis, what the end-to-end line reports and the file's
+    path (phase 14(b) reads it again; main deletes it)."""
     from femx_torch.assembly_tg import SolidOperatorTG
     from femx_torch.mesh import relabel_nodes, write_msh
 
@@ -531,7 +520,6 @@ def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
     t_ctor, fa = wall_s(lambda: femx_torch.SolidReactionAnalysis(
         path, force, fix, E=E, v=NU, dtype=np.float32, cg_tol=1e-8, verbose=False,
         device=DEVICE))
-    os.remove(path)
     ndof = 3 * np.prod([2 * c + 1 for c in FLAGSHIP])  # 1,390,179 at 24x24x96
     check(fa.mesh.structured is None and 3 * fa.num_nodes == ndof,
           f"unstructured flagship has {3 * fa.num_nodes} DOF")
@@ -592,7 +580,7 @@ def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
     log(f"   unstructured accurate solve, warm (median of {warm_runs}): {json.dumps(warm)}")
     log(f"   peak device memory of the unstructured flagship: "
         f"{warm['peak_device_bytes'] / 2 ** 20:.1f} MiB")
-    return launches, fa, warm
+    return launches, fa, warm, path
 
 
 def tg_kernel_rows(torch, fa, mem_tb):
@@ -663,78 +651,46 @@ def tg_kernel_rows(torch, fa, mem_tb):
     return rows
 
 
-def unstructured_bench(torch, femx_torch, runs_n=3):
-    """Phase 10: bench.py:223-308 with the TG operator — face-clamped,
-    relabelled, f32 TG + LatticePreconditioner, f32 pcg to 1e-5."""
-    from femx_torch.assembly_soa import SolidOperatorSoA
-    from femx_torch.assembly_tg import SolidOperatorTG
-    from femx_torch.solve.cg import pcg
-    from femx_torch.solve.lattice_precond import LatticePreconditioner
-
-    nx, ny, nz = FLAGSHIP
-    dims = (nx * H, ny * H, nz * H)
-    mesh = femx_torch.box_tet10(*dims, mesh_size=H)
-    pts, conn = mesh.points, mesh.cells["tetra10"]
-    ndof = 3 * mesh.num_nodes
-    mask = np.ones(ndof)
-    fixed = np.where(pts[:, 2] < 1e-9)[0]
-    mask[(3 * fixed[:, None] + np.arange(3)).ravel()] = 0
-    f = np.zeros(ndof)
-    tip = np.where(pts[:, 2] > dims[2] - 1e-9)[0]
-    f[3 * tip + 1] = -1000.0 / len(tip)
-    relabel = np.random.default_rng(0).permutation(len(pts))
-    pts_s = np.empty_like(pts)
-    pts_s[relabel] = pts
-    conn_s = relabel[conn]
-    mask_s = np.empty_like(mask)
-    mask_s.reshape(-1, 3)[relabel] = mask.reshape(-1, 3)
-    f_s = np.empty_like(f)
-    f_s.reshape(-1, 3)[relabel] = f.reshape(-1, 3)
-
-    t0 = time.perf_counter()
-    uop, _ = SolidOperatorTG.from_mesh(pts_s, conn_s, E, NU, dtype=np.float32, device=DEVICE)
+def unstructured_bench(torch, bench, problem, kind, runs_n=3):
+    """Phases 10 and 14(a): bench.py:223-308 through femx_torch.bench with the
+    operator `kind` ("tg", "groupell" or "cluster") — face-clamped,
+    relabelled, f32 operator + LatticePreconditioner, f32 pcg to 1e-5, 17 +-
+    2 iterations (BENCH_r05's 17, the same K and preconditioner for every
+    operator), profiled once; returns what the end-to-end line reports and
+    the flow's state."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    ub = bench.setup_unstructured(problem, kind, np.float32, DEVICE)
     torch.cuda.synchronize()
-    t_assemble = time.perf_counter() - t0
-    uop = uop.with_free_mask(uop.to_internal(mask_s))
-    lp = LatticePreconditioner(pts_s, conn_s, E, NU, mask_s, dtype=np.float32,
-                               node_perm=uop.new_of_old,
-                               bj_fn=SolidOperatorSoA.apply_block_jacobi,
-                               bj_data=uop.soa.block_jacobi_tensors(), device=DEVICE)
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    fu = torch.as_tensor(uop.to_internal(f_s * mask_s).astype(np.float32), device=DEVICE)
 
     def solve():
-        return pcg(uop.apply_constrained, fu, M_inv_diag=lp, tol=1e-5, maxiter=2000)
+        return bench.unstructured_solve(ub)
 
     launches, t_first, res = counted(torch, solve)
-    per = lp.launches_per_call()
+    per = ub.lp.launches_per_call()
     it = res.iterations
-    want = {"take_rows/float32": (it + 1) * (uop.gathers_per_apply + per["take_rows"]),
+    want = {"take_rows/float32": (it + 1) * (ub.op.gathers_per_apply + per["take_rows"]),
             f"{SCM}/float32": (it + 1) * per[SCM]}
-    log(f"   launch check: {it} iterations -> expect {want}, got {launches}")
-    check(launches == want, "unstructured bench launch count mismatch")
+    log(f"   {kind}: {ub.op.gathers_per_apply} take_rows per apply, per preconditioner call "
+        f"{per}; launch check: {it} iterations -> expect {want}, got {launches}")
+    check(launches == want, f"unstructured bench ({kind}) launch count mismatch")
     runs = [wall_s(solve) for _ in range(runs_n)]
     res = runs[-1][1]
     t_solve = statistics.median(t for t, _ in runs)
-    out = {"ndof": ndof, "assemble_s": t_assemble, "setup_s": t_setup, "first_solve_s": t_first,
-           "f32_solve_s": t_solve, "f32_solve_runs_s": [t for t, _ in runs],
-           "iters": res.iterations, "residual": res.residual_norm,
-           "lattice_cells": lp.n_cells, "launches": launches}
+    out = {"op": kind, "ndof": problem.ndof, "assemble_s": ub.assembly_s,
+           "setup_s": ub.setup_s, "first_solve_s": t_first, "f32_solve_s": t_solve,
+           "f32_solve_runs_s": [t for t, _ in runs], "iters": res.iterations,
+           "residual": res.residual_norm, "lattice_cells": ub.lp.n_cells, "launches": launches,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
     log(f"   unstructured bench {json.dumps(out)}")
     check(res.converged and abs(res.iterations - 17) <= 2,
-          f"unstructured f32 iterations {res.iterations} not 17 +- 2")
+          f"unstructured f32 iterations ({kind}) {res.iterations} not 17 +- 2")
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof, _ = wall_s(solve)
-    events = prof.key_averages()
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    n_kernels = sum(e.count for e in dev_events)
-    log("   profile of one f32 TG + lattice-MG PCG solve (top kernels by device time):")
+    t_prof, device_ms, events = bench.profiled(solve, torch.device(DEVICE))
+    n_kernels = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    log(f"   profile of one f32 {kind} + lattice-MG PCG solve (top kernels by device time):")
     log(events.table(sort_by="self_cuda_time_total", row_limit=16))
     out.update(profiled_solve_s=t_prof, profiled_device_ms=device_ms,
                device_kernels=n_kernels, device_kernels_per_iteration=n_kernels / (it + 1),
@@ -742,8 +698,9 @@ def unstructured_bench(torch, femx_torch, runs_n=3):
     log(f"   profiled solve: {t_prof * 1e3:.1f} ms wall, {device_ms:.1f} ms device time, "
         f"{n_kernels} device kernels ({n_kernels / (it + 1):.0f} per iteration) -> device "
         f"idle {100 * (1 - device_ms / (t_prof * 1e3)):.1f} % (unprofiled wall "
-        f"{t_solve * 1e3:.1f} ms -> idle {100 * out['idle_share']:.1f} %)")
-    return out
+        f"{t_solve * 1e3:.1f} ms -> idle {100 * out['idle_share']:.1f} %); peak device "
+        f"memory {out['peak_device_bytes'] / 2 ** 20:.1f} MiB")
+    return out, ub
 
 
 def small_mesh_files(torch, femx_torch, R_default):
@@ -924,20 +881,16 @@ def pcg_launches(its, per_apply=1, per_precond=0):
     return (per_apply + per_precond) * (sum(its) + len(its))
 
 
-def bench_modal(torch, bench_ops):
-    """Phase 13(a): bench.py:148-202 through the port: shift-invert Lanczos
-    with f32 MG-PCG inner solves on the face-clamped flagship (twice: first
-    and steady), then shift_invert_refine through pcg_refined to a true
-    residual of 1e-9, held to BENCH_r05's parity numbers."""
-    from femx_torch.modal import shift_invert_refine, solid_modal_structured
-    from femx_torch.solve.cg import pcg_refined
-
-    op, mg, op64 = bench_ops
-    per_vcycle = 5 * (len(mg.levels) - 1)
+def bench_modal(torch, bench, sb):
+    """Phase 13(a): bench.py:148-202 through femx_torch.bench's functions:
+    shift-invert Lanczos with f32 MG-PCG inner solves on the face-clamped
+    flagship (twice: first and steady), then shift_invert_refine through
+    pcg_refined to a true residual of 1e-9, held to BENCH_r05's parity
+    numbers."""
+    per_vcycle = 5 * (len(sb.mg.levels) - 1)
 
     def lanczos():
-        return solid_modal_structured(op, mg, rho=RHO, n_modes=10, inner_tol=1e-5,
-                                      inner_maxiter=200, tol=1e-4, maxiter=60)
+        return bench.lanczos(sb)
 
     torch.cuda.reset_peak_memory_stats()
     launches, t_first, mres = counted(torch, lanczos)
@@ -956,18 +909,9 @@ def bench_modal(torch, bench_ops):
     log(f"   f1-f3 against BENCH_r05's {BENCH_F_HZ}: rel {rel3.tolist()}")
     check(np.all(rel3 <= 1e-2), "Lanczos f1-f3 off BENCH_r05's by more than 1e-2")
 
-    m64 = op.lumped_mass_diagonal(RHO)
     solves = []
-
-    def ks_tight(b):
-        r = pcg_refined(op.apply_constrained, b.to(torch.float32), M_inv_diag=mg, tol=1e-5,
-                        maxiter=200, refine_steps=6, A_residual=op64.apply_constrained,
-                        b_residual=b, outer_tol=1e-9)
-        solves.append((r.iterations, r.residual_norm))
-        return r.x
-
     launches_r, t_ref, (om_ref, eta, _) = counted(
-        torch, lambda: shift_invert_refine(ks_tight, m64, mres.modes))
+        torch, lambda: bench.refine_modes(sb, mres, solves))
     # pcg_refined: 1 + passes f32 pcg calls and as many f64 residuals
     calls = launches_r.get(f"{SCM}/float64", 0)
     want = {f"{SCM}/float32": (1 + per_vcycle) * (sum(i for i, _ in solves) + calls),
@@ -1128,6 +1072,153 @@ def mesh_file_modal(torch, fa_file, fa_default):
     return out
 
 
+def block_operators_bench(torch, bench, problem, tg_ub):
+    """Phase 14(a): femx_torch.bench's unstructured flow with group-ELL, then
+    cluster (unstructured_bench, as phase 10), each operator's K @ u in
+    global order held to phase 10's TG apply (1e-5 relative, f32) and its
+    launches per apply to its take_rows calls per apply."""
+    x = np.random.default_rng(0).standard_normal(problem.ndof).astype(np.float32)
+    tg = tg_ub.op
+    xt = torch.as_tensor(tg.to_internal(x), device=DEVICE)
+    y_tg = tg.to_global(tg.apply(xt).cpu().numpy())
+    tg_ms = cuda_ms(lambda: tg.apply(xt), reps=10, inner=3)
+    rows, ubs = {}, {}
+    for kind in ("groupell", "cluster"):
+        out, ub = unstructured_bench(torch, bench, problem, kind)
+        xi = torch.as_tensor(ub.op.to_internal(x), device=DEVICE)
+        launches, _, y = counted(torch, lambda: ub.op.apply(xi))
+        want = {"take_rows/float32": ub.op.gathers_per_apply}
+        rel = rel_diff(ub.op.to_global(y.cpu().numpy()), y_tg)
+        out.update(apply_launches=launches, apply_rel_to_tg=rel,
+                   apply_ms=cuda_ms(lambda: ub.op.apply(xi), reps=10, inner=3),
+                   tg_apply_ms=tg_ms, gather_rows=ub.op.gather_rows())
+        log(f"   {kind} apply: K@u against TG rel {rel:.3e}; launches per apply: expect {want}, "
+            f"got {launches}; {out['apply_ms']:.4f} ms per apply (TG's {tg_ms:.4f} ms), "
+            f"{out['gather_rows']} gather rows; "
+            f"assembly {ub.assembly_s:.3f} s, setup {ub.setup_s:.3f} s")
+        check(launches == want, f"{kind} apply launch count mismatch")
+        check(rel <= 1e-5, f"{kind} apply differs from TG's by {rel:.3e}")
+        rows[kind], ubs[kind] = out, ub
+    return rows, ubs
+
+
+def block_operator_flagships(torch, femx_torch, path, R_struct):
+    """Phase 14(b): phase 8's relabelled flagship file through
+    SolidReactionAnalysis(dtype=float32, unstructured_operator=...) for
+    group-ELL and cluster: f64 CG on the float64 build, the f32 lattice MG;
+    method, equilibrium, corner reactions against phase 6's and launch
+    counts."""
+    force = [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0,
+              "force_x_pstn": 0.2, "force_y_pstn": 0.4, "force_z_pstn": 1.6}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in CORNERS_FLAGSHIP]
+    out = {}
+    for kind in ("groupell", "cluster"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        fa = femx_torch.SolidReactionAnalysis(path, force, fix, E=E, v=NU, dtype=np.float32,
+                                              cg_tol=1e-8, verbose=False, device=DEVICE,
+                                              unstructured_operator=kind)
+        launches, t_run, _ = counted(torch, fa.run_simulation)
+        info = fa.solve_info
+        log(f"   {kind}: run_simulation {t_run:.6f} s; solve_info {info}; stage_times "
+            f"{fa.stage_times}")
+        check(info["method"] == f"{kind}_lattice_mg_pcg_mixed", info["method"])
+        check(info["converged"] and info["residual"] <= 1e-8, f"{kind} flagship did not converge")
+        per = fa._precond.launches_per_call()
+        it = info["iterations"]
+        g = fa._op64.gathers_per_apply
+        # as phase 8: the f64 operator once up front, once per iteration and
+        # once for the reactions; the f32 lattice MG once up front and once
+        # per iteration
+        want = {"take_rows/float64": (it + 2) * g,
+                "take_rows/float32": (it + 1) * per["take_rows"],
+                f"{SCM}/float32": (it + 1) * per[SCM]}
+        log(f"   launch check: {it} iterations, {g} take_rows per apply -> expect {want}, "
+            f"got {launches}")
+        check(launches == want, f"{kind} flagship launch count mismatch")
+        eq = fa.equilibrium_residual()
+        R = corner_reactions(fa)
+        rel = rel_diff(R, R_struct)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"   corner reactions {R.tolist()}; against the structured route's rel {rel:.3e}; "
+            f"equilibrium {eq.tolist()}; peak device memory {peak / 2 ** 30:.3f} GiB")
+        check(np.linalg.norm(eq) <= 1e-6 * 1000.0, f"{kind} equilibrium {eq}")
+        check(rel <= 1e-6, f"{kind} corner reactions differ from the structured route's")
+        out[kind] = {"launches": launches, "run_simulation_s": t_run, "iterations": it,
+                     "solve_s": info["solve_s"], "precond_setup_s": info["precond_setup_s"],
+                     "stage_times": dict(fa.stage_times), "corner_rel_diff": rel,
+                     "peak_device_bytes": peak}
+        del fa
+    return out
+
+
+def groupell_symmetric(torch, ub):
+    """Phase 14(c): FEMX_GROUPELL_SYM=1 once at the flagship: the symmetric
+    storage's apply against phase 14(a)'s full storage (1e-5 relative, f32),
+    its launches per apply, both applies timed."""
+    from femx_torch.assembly_groupell import SolidOperatorGroupELL
+
+    os.environ["FEMX_GROUPELL_SYM"] = "1"
+    try:
+        t_build, (sym, _) = wall_s(lambda: SolidOperatorGroupELL.from_mesh(
+            ub.points, ub.conn, E, NU, dtype=np.float32, device=DEVICE))
+    finally:
+        del os.environ["FEMX_GROUPELL_SYM"]
+    full = ub.op
+    x = np.random.default_rng(1).standard_normal(3 * full.n_nodes).astype(np.float32)
+    xf = torch.as_tensor(full.to_internal(x), device=DEVICE)
+    xs = torch.as_tensor(sym.to_internal(x), device=DEVICE)
+    launches, _, y = counted(torch, lambda: sym.apply(xs))
+    want = {"take_rows/float32": sym.gathers_per_apply}
+    rel = rel_diff(sym.to_global(y.cpu().numpy()), full.to_global(full.apply(xf).cpu().numpy()))
+    out = {"launches": launches, "build_s": t_build, "rel_to_full": rel,
+           "blocks": sym.gather_rows(), "full_blocks": full.gather_rows(),
+           "apply_ms": cuda_ms(lambda: sym.apply(xs), reps=10, inner=3),
+           "full_apply_ms": cuda_ms(lambda: full.apply(xf), reps=10, inner=3)}
+    log(f"   symmetric storage: {json.dumps(out)}; launches per apply: expect {want}")
+    check(sym.symmetric and launches == want, "symmetric apply launch count mismatch")
+    check(rel <= 1e-5, f"symmetric apply differs from full storage by {rel:.3e}")
+    return out
+
+
+def new_shape_rows(torch, ge, cl, mem_tb):
+    """Phase 14(d): take_rows at the shapes the new operators give it, each
+    against its plain version (exact) and timed beside index_select, with
+    its bytes bound: group-ELL's largest u16[ii] bucket (width 48), its
+    u6[pairperm] (width 6) and cluster's largest u3[nodes] class (width 3),
+    f32."""
+    rng = np.random.default_rng(2)
+    big = max(range(len(ge.idx)), key=lambda i: ge.idx[i].numel())
+    cls = max(range(len(cl.cl_nodes)), key=lambda i: cl.cl_nodes[i].numel())
+    cases = [("groupell u16[ii]", ge.n_pad // 16, 48, ge.idx[big]),
+             ("groupell u6[pairperm]", ge.n_pad // 2, 6, ge.pairperm),
+             ("cluster u3[nodes]", cl.n_nodes, 3, cl.cl_nodes[cls])]
+    rows = []
+    for label, n_rows, width, idx in cases:
+        tab = torch.as_tensor(rng.standard_normal((n_rows, width)).astype(np.float32),
+                              device=DEVICE)
+        k = GATHER.take_rows(tab, idx)
+        p = GATHER.take_rows_plain(tab, idx)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        check(err == 0.0, f"take_rows disagrees with plain at {label}")
+        flat64 = idx.reshape(-1).long()
+        nbytes = tab.numel() * 4 + idx.numel() * 4 + k.numel() * 4
+        row = dict(shape=f"{label}: table {tuple(tab.shape)}, index {tuple(idx.shape)}",
+                   max_abs_err=err, ms=cuda_ms(lambda: GATHER.take_rows(tab, idx)),
+                   plain_ms=cuda_ms(lambda: GATHER.take_rows_plain(tab, idx)),
+                   library_ms=cuda_ms(lambda: torch.index_select(tab, 0, flat64)),
+                   bound_ms=nbytes / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nbytes)
+        log(f"   take_rows {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, index_select {row['library_ms']:.5f} ms; bytes bound "
+            f"{row['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB, share "
+            f"{100 * row['bound_ms'] / row['ms']:.0f} %)")
+        rows.append(row)
+    return rows
+
+
 def graph_device_ms(torch, fn, inner=10, reps=25):
     """Device time of one call of fn: a CUDA graph captures `inner` calls;
     each sample replays it behind a spin kernel long enough that the host has
@@ -1182,7 +1273,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import femx_torch
-    from femx_torch import build, gather
+    from femx_torch import bench, build, gather
     from femx_torch.assembly_structured import StructuredSolidOperator
     from femx_torch.elements import cell_matmul as cm
 
@@ -1214,129 +1305,165 @@ def main() -> int:
     log("6. flagship (structured) through SolidReactionAnalysis")
     paths["flagship"], warm, R_flagship, fa_flagship = flagship_case(torch, femx_torch)
 
-    log("7. bench flow")
-    bench, bench_ops = bench_flow(torch, femx_torch)
-    paths["bench_f32_solve"] = bench["launches_f32_solve"]
-    paths["bench_refined_solve"] = bench["launches_refined_solve"]
+    log("7. bench flow (femx_torch.bench)")
+    bflow, sb = bench_flow(torch, bench)
+    paths["bench_f32_solve"] = bflow["launches_f32_solve"]
+    paths["bench_refined_solve"] = bflow["launches_refined_solve"]
 
     log("8. unstructured flagship: relabelled box from a .msh file")
-    paths["unstructured_flagship"], fa_u, warm_u = unstructured_flagship(
+    paths["unstructured_flagship"], fa_u, warm_u, msh_path = unstructured_flagship(
         torch, femx_torch, R_flagship)
+    try:
+        log("9. take_rows against its plain version at the flagship's gathers; timing")
+        tg_rows = tg_kernel_rows(torch, fa_u, peaks[2])
+        del fa_u
 
-    log("9. take_rows against its plain version at the flagship's gathers; timing")
-    tg_rows = tg_kernel_rows(torch, fa_u, peaks[2])
-    del fa_u
+        log("10. unstructured bench flow (femx_torch.bench: TG + lattice MG, f32)")
+        ubench, tg_ub = unstructured_bench(torch, bench, sb.problem, "tg")
+        paths["unstructured_bench"] = ubench["launches"]
 
-    log("10. unstructured bench flow (TG + lattice MG, f32)")
-    ubench = unstructured_bench(torch, femx_torch)
-    paths["unstructured_bench"] = ubench["launches"]
+        log("11. small mesh files: TG + block-Jacobi (f64) and dense Cholesky")
+        small = small_mesh_files(torch, femx_torch, R_default)
+        for label, rec in small.items():
+            paths[label] = rec["launches"]
 
-    log("11. small mesh files: TG + block-Jacobi (f64) and dense Cholesky")
-    small = small_mesh_files(torch, femx_torch, R_default)
-    for label, rec in small.items():
-        paths[label] = rec["launches"]
+        log("12. examples: repro counterparts and the bench_dyngather sweep")
+        paths["examples"], ex_rows = examples_phase(torch, peaks[2])
 
-    log("12. examples: repro counterparts and the bench_dyngather sweep")
-    paths["examples"], ex_rows = examples_phase(torch, peaks[2])
+        log("13. solid extras and modal")
+        log(" (a) bench.py's modal: f32 Lanczos on the face-clamped flagship, then refined")
+        modal = bench_modal(torch, bench, sb)
+        paths["modal_lanczos"] = modal["launches_lanczos"]
+        paths["modal_refine"] = modal["launches_refine"]
+        problem = sb.problem
+        del sb
+        log(" (b) modal, compute_stresses and solve_cases on the corner-fixed f32 flagship")
+        extras = analysis_extras(torch, femx_torch, fa_flagship)
+        paths["analysis_modal"] = extras["launches_modal"]
+        paths["compute_stresses"] = extras["launches_stresses"]
+        paths["solve_cases"] = extras["launches_cases"]
+        del fa_flagship
+        log(" (c) checkpoint= on the default case: a cut run, then a resumed one")
+        ck = checkpoint_case(torch, femx_torch, R_default, fa_default.solve_info["iterations"])
+        paths["checkpoint_cut"] = ck["launches_cut"]
+        paths["checkpoint_resumed"] = ck["launches_resumed"]
+        log(" (d) refined modal on the mesh-file default (TG) and the structured default")
+        mfm = mesh_file_modal(torch, small["mesh_file_default"]["analysis"], fa_default)
+        paths["mesh_file_modal"] = mfm["mesh_file_modal"]["launches"]
+        paths["default_modal"] = mfm["default_modal"]["launches"]
 
-    log("13. solid extras and modal")
-    log(" (a) bench.py's modal: f32 Lanczos on the face-clamped flagship, then refined")
-    modal = bench_modal(torch, bench_ops)
-    paths["modal_lanczos"] = modal["launches_lanczos"]
-    paths["modal_refine"] = modal["launches_refine"]
-    del bench_ops
-    log(" (b) modal, compute_stresses and solve_cases on the corner-fixed f32 flagship")
-    extras = analysis_extras(torch, femx_torch, fa_flagship)
-    paths["analysis_modal"] = extras["launches_modal"]
-    paths["compute_stresses"] = extras["launches_stresses"]
-    paths["solve_cases"] = extras["launches_cases"]
-    del fa_flagship
-    log(" (c) checkpoint= on the default case: a cut run, then a resumed one")
-    ck = checkpoint_case(torch, femx_torch, R_default, fa_default.solve_info["iterations"])
-    paths["checkpoint_cut"] = ck["launches_cut"]
-    paths["checkpoint_resumed"] = ck["launches_resumed"]
-    log(" (d) refined modal on the mesh-file default (TG) and the structured default")
-    mfm = mesh_file_modal(torch, small["mesh_file_default"]["analysis"], fa_default)
-    paths["mesh_file_modal"] = mfm["mesh_file_modal"]["launches"]
-    paths["default_modal"] = mfm["default_modal"]["launches"]
+        log("14. group-ELL and cluster operators")
+        log(" (a) femx_torch.bench's unstructured flow with group-ELL, then cluster")
+        blk, ubs = block_operators_bench(torch, bench, problem, tg_ub)
+        del tg_ub
+        for k in ("groupell", "cluster"):
+            paths[f"{k}_bench"] = blk[k]["launches"]
+            paths[f"{k}_apply"] = blk[k]["apply_launches"]
+        log(" (b) the relabelled flagship file through SolidReactionAnalysis, f32, both operators")
+        ubs["cluster"].lp = ubs["groupell"].lp = None  # their lattices are not needed any more
+        flag = block_operator_flagships(torch, femx_torch, msh_path, R_flagship)
+        for k in ("groupell", "cluster"):
+            paths[f"{k}_flagship"] = flag[k]["launches"]
+        log(" (c) group-ELL symmetric storage (FEMX_GROUPELL_SYM=1)")
+        sym = groupell_symmetric(torch, ubs["groupell"])
+        paths["groupell_symmetric_apply"] = sym["launches"]
+        log(" (d) take_rows at the new operators' shapes")
+        new_rows = new_shape_rows(torch, ubs["groupell"].op, ubs["cluster"].op, peaks[2])
+        del ubs
 
-    def by_path(key):
-        return {p: int(c.get(key, 0)) for p, c in paths.items()}
+        def by_path(key):
+            return {p: int(c.get(key, 0)) for p, c in paths.items()}
 
-    kernels = []
-    for name, row in rows.items():
-        key = f"{SCM}/{name}"
+        kernels = []
+        for name, row in rows.items():
+            key = f"{SCM}/{name}"
+            kernels.append({
+                "name": f"structured_cell_matmul_{'f32' if name == 'float32' else 'f64'}",
+                "dtype": name, "route": "cuda",
+                "source": "femx_torch/csrc/structured_cell_matmul.cu",
+                "replaces": "femx/elements/pallas_structured.py:101",
+                "path": "flagship", "launches": int(paths["flagship"].get(key, 0)), **row,
+                "launches_by_path": by_path(key)})
+        gather_src = "examples/pallas_gather_repros.py"
+        for name, row in tg_rows.items():
+            key = f"take_rows/{name}"
+            kernels.append({
+                "name": f"take_rows_{'f32' if name == 'float32' else 'f64'}",
+                "dtype": name, "route": "cuda", "source": "femx_torch/csrc/take_rows.cu",
+                "replaces": f"{gather_src}:56",
+                "also_replaces": [f"{gather_src}:72", f"{gather_src}:128"],
+                "path": "unstructured_flagship",
+                "launches": int(paths["unstructured_flagship"].get(key, 0)), **row,
+                **({"new_shapes": new_rows} if name == "float32" else {}),
+                "launches_by_path": by_path(key)})
         kernels.append({
-            "name": f"structured_cell_matmul_{'f32' if name == 'float32' else 'f64'}",
-            "dtype": name, "route": "cuda",
-            "source": "femx_torch/csrc/structured_cell_matmul.cu",
-            "replaces": "femx/elements/pallas_structured.py:101",
-            "path": "flagship", "launches": int(paths["flagship"].get(key, 0)), **row,
-            "launches_by_path": by_path(key)})
-    gather_src = "examples/pallas_gather_repros.py"
-    for name, row in tg_rows.items():
-        key = f"take_rows/{name}"
+            "name": "take_along_axis", "dtype": "float32", "route": "cuda",
+            "source": "femx_torch/csrc/take_along_axis.cu", "replaces": f"{gather_src}:90",
+            "also_replaces": [f"{gather_src}:108", "examples/bench_dyngather.py:52"],
+            "path": "examples",
+            "launches": int(paths["examples"].get("take_along_axis/float32", 0)),
+            **ex_rows["take_along_axis"], "launches_by_path": by_path("take_along_axis/float32")})
+        mosaic_src = "examples/pallas_mosaic_repros.py"
         kernels.append({
-            "name": f"take_rows_{'f32' if name == 'float32' else 'f64'}",
-            "dtype": name, "route": "cuda", "source": "femx_torch/csrc/take_rows.cu",
-            "replaces": f"{gather_src}:56",
-            "also_replaces": [f"{gather_src}:72", f"{gather_src}:128"],
-            "path": "unstructured_flagship",
-            "launches": int(paths["unstructured_flagship"].get(key, 0)), **row,
-            "launches_by_path": by_path(key)})
-    kernels.append({
-        "name": "take_along_axis", "dtype": "float32", "route": "cuda",
-        "source": "femx_torch/csrc/take_along_axis.cu", "replaces": f"{gather_src}:90",
-        "also_replaces": [f"{gather_src}:108", "examples/bench_dyngather.py:52"],
-        "path": "examples", "launches": int(paths["examples"].get("take_along_axis/float32", 0)),
-        **ex_rows["take_along_axis"], "launches_by_path": by_path("take_along_axis/float32")})
-    mosaic_src = "examples/pallas_mosaic_repros.py"
-    kernels.append({
-        "name": "row_copy", "dtype": "float32", "route": "cuda",
-        "source": "femx_torch/csrc/row_copy.cu", "replaces": f"{mosaic_src}:47",
-        "also_replaces": [f"{mosaic_src}:{n}" for n in (63, 86, 107, 128)],
-        "path": "examples", "launches": int(paths["examples"].get("row_copy/float32", 0)),
-        **ex_rows["row_copy"], "launches_by_path": by_path("row_copy/float32")})
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched on its path ({k['path']})")
-    log("end-to-end: " + json.dumps({
-        "accurate_solve_run_simulation_s": warm["run_simulation_s"],
-        "accurate_solve_solve_s": warm["solve_s"],
-        "bench_f32_solve_s": bench["f32_solve_s"], "bench_f32_iters": bench["f32_iters"],
-        "bench_refined_solve_s": bench["refined_solve_s"],
-        "bench_refined_inner_iters": bench["refined_inner_iters"],
-        "unstructured_run_simulation_s": warm_u["run_simulation_s"],
-        "unstructured_solve_s": warm_u["solve_s"],
-        "unstructured_iters": warm_u["iterations"],
-        "unstructured_read_mesh_s": warm_u["read_mesh_s"],
-        "unstructured_bench_f32_solve_s": ubench["f32_solve_s"],
-        "unstructured_bench_f32_iters": ubench["iters"],
-        "unstructured_bench_idle_share": ubench["idle_share"],
-        "mesh_file_default_run_simulation_s": small["mesh_file_default"]["run_simulation_s"],
-        "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"],
-        "flagship_peak_device_bytes": warm["peak_device_bytes"],
-        "unstructured_peak_device_bytes": warm_u["peak_device_bytes"],
-        "modal10_s": modal["modal10_s"], "modal10_first_s": modal["modal10_first_s"],
-        "modal10_inner_solves": modal["modal10_inner_solves"],
-        "modal_f1_hz": modal["modal_f1_hz"], "modal_f1_lanczos_hz": modal["modal_f1_lanczos_hz"],
-        "modal_f1_bound": modal["modal_bounds"][0], "modal_max_bound": max(modal["modal_bounds"]),
-        "modal_refine_s": modal["modal_refine_s"],
-        "modal_peak_device_bytes": modal["modal_peak_device_bytes"],
-        "analysis_modal10_s": extras["analysis_modal10_s"],
-        "compute_stresses_s": extras["compute_stresses_s"],
-        "compute_stresses_peak_device_bytes": extras["compute_stresses_peak_device_bytes"],
-        "solve_cases_iters": extras["solve_cases_iters"], "solve_cases_s": extras["solve_cases_s"],
-        "checkpoint_resumed_s": ck["checkpoint_resumed_s"],
-        "checkpoint_iterations": ck["checkpoint_iterations"],
-        "mesh_file_modal_s": mfm["mesh_file_modal"]["s"],
-        "default_modal_s": mfm["default_modal"]["s"]}))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+            "name": "row_copy", "dtype": "float32", "route": "cuda",
+            "source": "femx_torch/csrc/row_copy.cu", "replaces": f"{mosaic_src}:47",
+            "also_replaces": [f"{mosaic_src}:{n}" for n in (63, 86, 107, 128)],
+            "path": "examples", "launches": int(paths["examples"].get("row_copy/float32", 0)),
+            **ex_rows["row_copy"], "launches_by_path": by_path("row_copy/float32")})
+        for k in kernels:
+            check(k["launches"] > 0, f"{k['name']} was not launched on its path ({k['path']})")
+        log("end-to-end: " + json.dumps({
+            "accurate_solve_run_simulation_s": warm["run_simulation_s"],
+            "accurate_solve_solve_s": warm["solve_s"],
+            "bench_f32_solve_s": bflow["f32_solve_s"], "bench_f32_iters": bflow["f32_iters"],
+            "bench_refined_solve_s": bflow["refined_solve_s"],
+            "bench_refined_inner_iters": bflow["refined_inner_iters"],
+            "unstructured_run_simulation_s": warm_u["run_simulation_s"],
+            "unstructured_solve_s": warm_u["solve_s"],
+            "unstructured_iters": warm_u["iterations"],
+            "unstructured_read_mesh_s": warm_u["read_mesh_s"],
+            "unstructured_bench_f32_solve_s": ubench["f32_solve_s"],
+            "unstructured_bench_f32_iters": ubench["iters"],
+            "unstructured_bench_idle_share": ubench["idle_share"],
+            "mesh_file_default_run_simulation_s": small["mesh_file_default"]["run_simulation_s"],
+            "mesh_file_default_iters": small["mesh_file_default"]["solve_info"]["iterations"],
+            "flagship_peak_device_bytes": warm["peak_device_bytes"],
+            "unstructured_peak_device_bytes": warm_u["peak_device_bytes"],
+            "modal10_s": modal["modal10_s"], "modal10_first_s": modal["modal10_first_s"],
+            "modal10_inner_solves": modal["modal10_inner_solves"],
+            "modal_f1_hz": modal["modal_f1_hz"],
+            "modal_f1_lanczos_hz": modal["modal_f1_lanczos_hz"],
+            "modal_f1_bound": modal["modal_bounds"][0],
+            "modal_max_bound": max(modal["modal_bounds"]),
+            "modal_refine_s": modal["modal_refine_s"],
+            "modal_peak_device_bytes": modal["modal_peak_device_bytes"],
+            "analysis_modal10_s": extras["analysis_modal10_s"],
+            "compute_stresses_s": extras["compute_stresses_s"],
+            "compute_stresses_peak_device_bytes": extras["compute_stresses_peak_device_bytes"],
+            "solve_cases_iters": extras["solve_cases_iters"],
+            "solve_cases_s": extras["solve_cases_s"],
+            "checkpoint_resumed_s": ck["checkpoint_resumed_s"],
+            "checkpoint_iterations": ck["checkpoint_iterations"],
+            "mesh_file_modal_s": mfm["mesh_file_modal"]["s"],
+            "default_modal_s": mfm["default_modal"]["s"],
+            **{f"{k}_bench_{f}": blk[k][f] for k in ("groupell", "cluster")
+               for f in ("iters", "f32_solve_s", "assemble_s", "setup_s", "peak_device_bytes",
+                         "idle_share", "apply_ms")},
+            **{f"{k}_flagship_{f}": flag[k][f] for k in ("groupell", "cluster")
+               for f in ("iterations", "run_simulation_s", "solve_s", "peak_device_bytes")},
+            "tg_apply_ms": blk["groupell"]["tg_apply_ms"],
+        "groupell_symmetric_apply_ms": sym["apply_ms"],
+            "groupell_full_apply_ms": sym["full_apply_ms"]}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
+    finally:
+        if os.path.exists(msh_path):
+            os.remove(msh_path)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -13,17 +13,21 @@ count). The routes are femx's, by mesh kind and DOF count:
       block-Jacobi PCG up to MG_DOF_THRESHOLD DOFs, StructuredMultigrid PCG
       above it
   unstructured, > DENSE_DOF_LIMIT DOFs -> SolidOperatorTG (its row gathers
-      are the take_rows CUDA kernel); block-Jacobi PCG, or above
-      MG_DOF_THRESHOLD the LatticePreconditioner (StructuredMultigrid on an
-      auxiliary lattice)
+      are the take_rows CUDA kernel), or by unstructured_operator= the
+      group-ELL (femx's FEMX_GROUPELL_MAX_BLOCKS cap falls back to TG) or
+      the cluster operator (their row gathers the same kernel);
+      block-Jacobi PCG, or above MG_DOF_THRESHOLD the LatticePreconditioner
+      (StructuredMultigrid on an auxiliary lattice)
   up to DENSE_DOF_LIMIT DOFs (or solver="dense") -> dense Cholesky of the
       assembled K (solver="cg": block-Jacobi PCG on the generic operator)
 
-With dtype=float32 the structured and transpose-gather routes run float64
-CG on the operator assembled in float64 from the mesh, preconditioned in
-float32 (methods "*_pcg_mixed"). femx instead refines in float64 against
-the float32 operator cast up, which carries the float32-rounded geometry
-into the solution: on point-supported boxes it misses the equilibrium of
+With dtype=float32 the structured and unstructured matrix-free routes run
+float64 CG on an operator of the same kind assembled in float64 from the
+mesh, preconditioned in float32 (methods "*_pcg_mixed"); the group-ELL and
+cluster routes find their block structure once, sum the blocks in float64
+and keep that operator beside its float32 cast. femx instead refines in
+float64 against the float32 operator cast up, which carries the
+float32-rounded geometry into the solution: on point-supported boxes it misses the equilibrium of
 the float64 operator (tests/test_torch_solid.py,
 tests/test_torch_f32_witness.py). The small-mesh routes solve in float64
 whatever dtype says. Reactions are r = K u with the unconstrained float64
@@ -48,6 +52,7 @@ float64 unless FEMX_DTYPE says otherwise).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import List, Optional, Sequence, Union
@@ -58,6 +63,8 @@ import torch
 from femx_torch import bc as bc_mod
 from femx_torch import checkpoint as ckpt
 from femx_torch.assembly import SolidOperator, assemble_dense, dof_map
+from femx_torch.assembly_cluster import SolidOperatorCluster
+from femx_torch.assembly_groupell import SolidOperatorGroupELL
 from femx_torch.assembly_soa import BlockJacobiPrecond, SolidOperatorSoA
 from femx_torch.assembly_structured import StructuredBlockJacobi, StructuredSolidOperator
 from femx_torch.assembly_tg import SolidOperatorTG
@@ -72,6 +79,10 @@ from femx_torch.solve.cg import pcg, pcg_mixed
 from femx_torch.solve.dense import solve_dense
 from femx_torch.solve.lattice_precond import LatticePreconditioner
 from femx_torch.solve.multigrid import StructuredMultigrid
+
+
+# the unstructured matrix-free operators, which run in an internal node order
+_INTERNAL_OPS = (SolidOperatorTG, SolidOperatorGroupELL, SolidOperatorCluster)
 
 
 def nodal_stresses(points, conn, u, C, device=None, chunk: int = 65536):
@@ -136,9 +147,6 @@ class SolidReactionAnalysis:
         if uop not in ("tg", "cluster", "groupell"):
             raise ValueError("unstructured_operator must be 'tg', 'cluster' or "
                              f"'groupell', got {uop!r}")
-        if uop != "tg":
-            raise NotImplementedError(
-                f"unstructured_operator={uop!r} is not ported yet (ROADMAP A11)")
         if (devices or 0) > 1:
             raise NotImplementedError("devices=N is not ported yet (ROADMAP A15)")
         if structured_apply not in (None, "slot"):
@@ -178,6 +186,7 @@ class SolidReactionAnalysis:
         self.stage_times: dict = {}
         self._precond = None  # what solve() preconditioned with (None: dense)
         self._op64 = None  # the float64 operator of the solve (float32 routes: assembled in f64)
+        self._assembled64 = None  # group-ELL / cluster: the float64 build the operator casts
 
         self._read_mesh()
         self.C = material_matrix(self.E, self.v)
@@ -223,9 +232,7 @@ class SolidReactionAnalysis:
             self.negative_detJ_count = 0
         else:
             if self.solver != "dense" and 3 * self.num_nodes > self.DENSE_DOF_LIMIT:
-                op, detJ = SolidOperatorTG.from_mesh(
-                    self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
-                    dtype=dtype, device=self.device)
+                op, detJ = self._assemble_unstructured(dtype)
             else:
                 op, detJ = SolidOperator.from_mesh(
                     self.points, self.tetra10_conn, self.C, weight=self.weight,
@@ -234,6 +241,35 @@ class SolidReactionAnalysis:
             self.negative_detJ_count = int((detJ <= 1e-12).sum())
         self.stage_times["assemble"] = time.perf_counter() - t0
         self._log("   - Assembly complete.")
+
+    def _assemble_unstructured(self, dtype: np.dtype):
+        """The large-mesh operator by unstructured_operator (femx/analysis/
+        solid.py:337-380): group-ELL (TG above the FEMX_GROUPELL_MAX_BLOCKS
+        cap on its estimated 8.7 blocks per element, as femx), cluster, or
+        TG. Group-ELL and cluster are built in float64 (kept as
+        _assembled64) and cast to a float32 analysis' dtype. Returns (op,
+        detJ)."""
+        kw = dict(weight=self.weight, device=self.device)
+        uop = self.unstructured_operator
+        if uop == "groupell":
+            max_blocks = int(os.environ.get("FEMX_GROUPELL_MAX_BLOCKS", "4500000"))
+            est_blocks = int(8.7 * len(self.tetra10_conn))
+            if est_blocks > max_blocks:
+                self._log(f"   - group-ELL estimated {est_blocks} blocks > cap {max_blocks}; "
+                          "using the TG operator (FEMX_GROUPELL_MAX_BLOCKS raises the cap).")
+                uop = "tg"
+        if uop == "tg":
+            return SolidOperatorTG.from_mesh(self.points, self.tetra10_conn, self.E, self.v,
+                                             dtype=dtype, **kw)
+        if uop == "groupell":
+            op64, detJ = SolidOperatorGroupELL.from_mesh(
+                self.points, self.tetra10_conn, self.E, self.v, dtype=np.float64,
+                kb_dtype=np.float64, **kw)
+        else:
+            op64, detJ = SolidOperatorCluster.from_mesh(
+                self.points, self.tetra10_conn, self.E, self.v, dtype=np.float64, **kw)
+        self._assembled64 = op64
+        return (op64.cast(dtype) if uop == "groupell" else op64.astype(dtype)), detJ
 
     def apply_boundary_conditions(self) -> None:
         self._log("3. Applying point-based boundary conditions...")
@@ -256,8 +292,8 @@ class SolidReactionAnalysis:
         self._log("4. Solving the linear system...")
         t0 = time.perf_counter()
         if not self._structured:
-            if isinstance(self.operator, SolidOperatorTG):
-                self._solve_tg(t0)
+            if isinstance(self.operator, _INTERNAL_OPS):
+                self._solve_unstructured(t0)
             else:
                 self._solve_small()
             self._log("   - System solved.")
@@ -362,20 +398,26 @@ class SolidReactionAnalysis:
             info.update(checkpoint=self.checkpoint, resumed_iterations=resumed)
         return info
 
-    def _solve_tg(self, t0: float) -> None:
-        """The unstructured transpose-gather route (femx/analysis/solid.py:
-        640-767): block-Jacobi PCG, or the lattice-MG preconditioner above
-        MG_DOF_THRESHOLD DOFs; float32 runs float64 CG preconditioned in
-        float32, as the structured route does."""
+    def _solve_unstructured(self, t0: float) -> None:
+        """The unstructured matrix-free routes (femx/analysis/solid.py:
+        640-767): TG, group-ELL or cluster, with block-Jacobi PCG, or the
+        lattice-MG preconditioner above MG_DOF_THRESHOLD DOFs; float32 runs
+        float64 CG on the operator of the same kind assembled in float64,
+        preconditioned in float32, as the structured route does."""
         mask_g = self.constraints.free_mask()
         m_int = self.operator.to_internal(mask_g)
         op = self.operator.with_free_mask(m_int)
         self.operator = op
+        tag = ("groupell" if isinstance(op, SolidOperatorGroupELL) else
+               "cluster" if isinstance(op, SolidOperatorCluster) else "tg")
         f64_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=self.device)
         t_pre = time.perf_counter()
-        bj_data = op.soa.block_jacobi_tensors()
+        if tag == "tg":
+            bj_data, bj_fn = op.soa.block_jacobi_tensors(), SolidOperatorSoA.apply_block_jacobi
+        else:
+            bj_data, bj_fn = op.block_jacobi_tensors(), type(op).apply_block_jacobi
         precond = None
-        prefix = "tg_block_jacobi"
+        prefix = f"{tag}_block_jacobi"
         if 3 * self.num_nodes > self.MG_DOF_THRESHOLD:
             # auxiliary structured-lattice MG coarse correction: cuts
             # block-Jacobi's O(1000) iterations by an order of magnitude
@@ -383,18 +425,21 @@ class SolidReactionAnalysis:
                 precond = LatticePreconditioner(
                     self.points, self.tetra10_conn, self.E, self.v, mask_g,
                     dtype=numpy_dtype(op.dtype).type, node_perm=op.new_of_old,
-                    bj_fn=SolidOperatorSoA.apply_block_jacobi, bj_data=bj_data,
+                    bj_fn=bj_fn, bj_data=bj_data, n_caller=getattr(op, "n_pad", None),
                     device=self.device)
-                prefix = "tg_lattice_mg"
+                prefix = f"{tag}_lattice_mg"
             except ValueError as e:
                 self._log(f"   - Lattice preconditioner unavailable ({e}); "
                           "using block-Jacobi.")
         if precond is None:
-            precond = BlockJacobiPrecond(bj_data)
+            precond = (BlockJacobiPrecond(bj_data) if tag == "tg"
+                       else functools.partial(bj_fn, bj_data))
         self._precond = precond
         t_pre = time.perf_counter() - t_pre
         mixed = op.dtype == torch.float32
-        if mixed:
+        if not mixed:
+            op64 = op
+        elif tag == "tg":
             # f64 CG on the TG operator assembled in f64 from the mesh,
             # preconditioned in f32. femx refines against op.astype(float64)
             # (femx/analysis/solid.py:722), whose f32-rounded geometry factors
@@ -405,7 +450,8 @@ class SolidReactionAnalysis:
                 dtype=np.float64, device=self.device)
             op64 = op64.with_free_mask(m_int)
         else:
-            op64 = op
+            # the float64 build the float32 operator was cast from
+            op64 = self._assembled64.with_free_mask(m_int)
         self._op64 = op64
         res, resumed = self._run_cg(op64, f64_int, precond, mixed)
         method = prefix + ("_pcg_mixed" if mixed else "_pcg")
@@ -524,7 +570,7 @@ class SolidReactionAnalysis:
         m_node = torch.zeros(self.num_nodes, dtype=torch.float64, device=self.device)
         m_node.index_add_(0, conn.reshape(-1), ml.reshape(-1))
         m_dof = np.repeat(m_node.cpu().numpy(), 3)
-        return op.to_internal(m_dof) if isinstance(op, SolidOperatorTG) else m_dof
+        return op.to_internal(m_dof) if isinstance(op, _INTERNAL_OPS) else m_dof
 
     def modal(self, n_modes: int = 10, rho: float = 7850.0, tol: float = 1e-6,
               maxiter: int = 100, inner_tol: Optional[float] = None,
@@ -554,6 +600,12 @@ class SolidReactionAnalysis:
         if self.u is None:
             raise RuntimeError("Run the analysis (solve) before modal().")
         op = self.operator
+        if isinstance(op, SolidOperatorGroupELL):
+            raise NotImplementedError(
+                "modal() has no group-ELL branch: femx's SolidReactionAnalysis.modal leaves "
+                "the group-ELL operator out of its unstructured branch (is_tg, "
+                "femx/analysis/solid.py:1297) and fails reading op.dN, so there is no "
+                "reference to hold it to; use unstructured_operator='tg' or 'cluster'")
         if inner_tol is None:
             inner_tol = max(self.cg_tol, 1e-6)
         m_use = self._lumped_mass(rho)
@@ -567,7 +619,7 @@ class SolidReactionAnalysis:
                            "inner_iterations": res.inner_iterations,
                            "refine_iterations": None}
         if refine:
-            if not (self._structured or isinstance(op, SolidOperatorTG)):
+            if not (self._structured or isinstance(op, _INTERNAL_OPS)):
                 def ks_acc(b):  # the small-mesh operator: the inner solve (femx)
                     return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=inner_tol,
                                maxiter=4000)
@@ -581,7 +633,7 @@ class SolidReactionAnalysis:
                     return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=1e-11,
                                maxiter=6000)
             res = self._refine_modal(res, ks_acc, m_use)
-        if self._structured or isinstance(op, SolidOperatorTG):
+        if self._structured or isinstance(op, _INTERNAL_OPS):
             modes = res.modes.cpu().numpy()
             modes = np.stack([op.to_global(modes[:, i]) for i in range(modes.shape[1])],
                              axis=1)

@@ -111,6 +111,12 @@ class SolidOperator:
         d = torch.zeros((self.n_nodes, 3), dtype=dke.dtype, device=dke.device)
         return d.index_add_(0, self.conn.reshape(-1), dke.reshape(-1, 3)).reshape(-1)
 
+    def constrained_diagonal(self) -> torch.Tensor:
+        """diag of the constrained operator: diag(K) on free DOFs, 1 on fixed
+        ones."""
+        s = self.free_mask
+        return self.diagonal() * s + (1.0 - s)
+
     def block_diagonal(self) -> torch.Tensor:
         """Nodal 3x3 diagonal blocks of K, (n_nodes, 3, 3), matrix-free."""
         bke = self._block_entries("egkn,ckdl,egln,eg->encd")

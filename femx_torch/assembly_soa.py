@@ -66,7 +66,8 @@ class SolidOperatorSoA:
         return self.dNg.device
 
     def with_free_mask(self, free_mask) -> "SolidOperatorSoA":
-        m = (free_mask.to(self.dtype, self.device) if isinstance(free_mask, torch.Tensor)
+        m = (free_mask.to(device=self.device, dtype=self.dtype)
+             if isinstance(free_mask, torch.Tensor)
              else torch.tensor(np.asarray(free_mask), dtype=self.dtype, device=self.device))
         return dataclasses.replace(self, free_mask=m)
 

@@ -34,6 +34,13 @@ def default_dtype() -> torch.dtype:
     return _DEFAULT_DTYPE
 
 
+def set_default_dtype(dtype) -> None:
+    """Set the framework-wide default floating dtype (float32 or float64;
+    numpy or torch dtype), as femx.config.set_default_dtype does."""
+    global _DEFAULT_DTYPE
+    _DEFAULT_DTYPE = torch_dtype(dtype)
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype / type / torch dtype -> torch dtype (float32 or float64)."""
     if isinstance(dtype, torch.dtype):

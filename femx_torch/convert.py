@@ -5,8 +5,9 @@ builders take plain numpy arrays — for example read off femx objects with
 ``np.asarray`` — so two implementations can run the very same operator and
 hierarchy (cell matrices, masks, block-Jacobi inverses, damping, coarse
 inverse; unstructured geometry factors, connectivity, degree buckets and
-relabelling; lattice transfer indices, weights, buckets and ranks) and be
-compared iterate by iterate.
+relabelling; group-ELL and cluster blocks with their index structure;
+lattice transfer indices, weights, buckets and ranks) and be compared
+iterate by iterate.
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from femx_torch.assembly_cluster import SolidOperatorCluster
+from femx_torch.assembly_groupell import GROUP, PAIR, SolidOperatorGroupELL
 from femx_torch.assembly_soa import SolidOperatorSoA
 from femx_torch.assembly_structured import StructuredSolidOperator
 from femx_torch.assembly_tg import SolidOperatorTG
-from femx_torch.config import numpy_dtype, resolve_device
+from femx_torch.config import numpy_dtype, resolve_device, torch_dtype
+from femx_torch.gather import index_tensor
 from femx_torch.elements.tet10_soa import dof_table
 from femx_torch.solve.lattice_precond import (
     LatticePreconditioner, LatticeTransfer, LatticeTransferPruned)
@@ -92,6 +96,59 @@ def tg_operator_from_arrays(dNg, wdet, C6, connT, bucket_idx, bucket_degrees, ne
     soa = soa_operator_from_arrays(dNg, wdet, C6, connT, len(new_of_old), weight,
                                    device=device)
     op = SolidOperatorTG.from_arrays(soa, connT, bucket_idx, bucket_degrees, new_of_old)
+    return op if free_mask is None else op.with_free_mask(np.asarray(free_mask))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A host array as a tensor on `device`; bfloat16 arrays (which torch
+    cannot read from numpy) pass through float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def groupell_operator_from_arrays(
+    idx, Kb, bucket_g, pairperm, new_of_old, n_nodes, n_pad, weight, bd_host, points, conn,
+    E_mod, nu, io_dtype=None, free_mask=None, tidx=None, tdeg=None, out_take=None,
+    ord_rb=None, bd_dev=None, device=None,
+) -> SolidOperatorGroupELL:
+    """A SolidOperatorGroupELL from femx's arrays: the per-bucket group ids
+    and (n_g, g, 6, 48) blocks (their dtype is the storage dtype), the pair
+    permutation and node relabelling, the float64 nodal diagonal blocks and
+    the mesh (for the block-Jacobi tensors and the shadow); with tidx the
+    symmetric-storage arrays too. io_dtype defaults to the blocks' dtype;
+    free_mask is in the internal layout."""
+    dev = resolve_device(device)
+    NG, NP = int(n_pad) // GROUP, int(n_pad) // PAIR
+    Kb = [_tensor(k, dev) for k in Kb]
+    io = torch_dtype(io_dtype) if io_dtype is not None else Kb[-1].dtype
+    sym = {}
+    if tidx is not None:
+        n_blocks = sum(np.asarray(i).size for i in idx)
+        sym = dict(symmetric=True, tidx=[index_tensor(t, n_blocks, dev) for t in tidx],
+                   tdeg=[int(d) for d in tdeg],
+                   out_take=index_tensor(out_take, int(np.asarray(out_take).max()) + 1, dev),
+                   ord_rb=index_tensor(ord_rb, NP, dev),
+                   bd_dev=torch.tensor(np.asarray(bd_dev), device=dev).to(io))
+    op = SolidOperatorGroupELL(
+        idx=[index_tensor(i, NG, dev) for i in idx], Kb=Kb, bucket_g=[int(g) for g in bucket_g],
+        pairperm=index_tensor(pairperm, NP, dev), new_of_old=np.asarray(new_of_old),
+        n_nodes=int(n_nodes), n_pad=int(n_pad), weight=float(weight), io_dtype=io,
+        bd_host=np.asarray(bd_host, dtype=np.float64), points=np.asarray(points),
+        conn=np.asarray(conn), E_mod=float(E_mod), nu=float(nu), **sym)
+    return op if free_mask is None else op.with_free_mask(np.asarray(free_mask))
+
+
+def cluster_operator_from_arrays(Kcl, cl_nodes, class_M, bucket_idx, bucket_degrees,
+                                 new_of_old, weight, free_mask=None,
+                                 device=None) -> SolidOperatorCluster:
+    """A SolidOperatorCluster from femx's arrays (per-class blocks, whose
+    dtype is the operator's, cluster node lists, transpose buckets, node
+    relabelling; free_mask in the internal layout)."""
+    op = SolidOperatorCluster.from_arrays([np.array(K) for K in Kcl], cl_nodes, class_M,
+                                          bucket_idx, bucket_degrees, new_of_old, weight,
+                                          device=device)
     return op if free_mask is None else op.with_free_mask(np.asarray(free_mask))
 
 

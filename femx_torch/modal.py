@@ -265,7 +265,7 @@ def modal_shift_invert(
 
     V = torch.zeros((maxiter, ndof), dtype=dtype, device=dev)
     v = (_masked_normal(generator, ndof, dtype, dev, s) if v0 is None
-         else torch.as_tensor(np.asarray(v0), dtype=dtype, device=dev) * s)
+         else torch.tensor(np.asarray(v0), dtype=dtype, device=dev) * s)
     V[0] = v / torch.linalg.norm(v)
 
     alphas: list = []

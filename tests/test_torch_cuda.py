@@ -1,8 +1,9 @@
 """femx_torch on a CUDA card: each hand-written kernel against its plain
 version (structured_cell_matmul within a tolerance; take_rows,
 take_along_axis and row_copy exactly), the example repros, and the
-structured and transpose-gather applies and solves against the same runs on
-the CPU. Every test here carries the `cuda` marker and skips without a card.
+structured, transpose-gather, group-ELL and cluster applies and solves
+against the same runs on the CPU. Every test here carries the `cuda`
+marker and skips without a card.
 
 This file imports neither jax nor femx, so it also runs on a GPU machine
 without JAX; tests/conftest.py imports jax, so there run it as
@@ -347,6 +348,64 @@ def test_tg_apply_matches_cpu(cuda, dtype, rtol):
     assert n() == ops[1].gathers_per_apply
     want = ops[0].apply_constrained(torch.from_numpy(u)).numpy()
     np.testing.assert_allclose(got, want, rtol=rtol, atol=np.abs(want).max() * rtol)
+
+
+@pytest.mark.parametrize("kind,symmetric", [("groupell", False), ("groupell", True),
+                                            ("cluster", False)])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+def test_block_operator_apply_matches_cpu(cuda, kind, dtype, rtol, symmetric):
+    """The group-ELL (full and symmetric storage) and cluster applies on the
+    card (take_rows kernel at widths 48, 6 and 3) against the same operators
+    built on the CPU; one take_rows launch per gather of the apply."""
+    from femx_torch.assembly_cluster import SolidOperatorCluster
+    from femx_torch.assembly_groupell import SolidOperatorGroupELL
+
+    mesh = femx_torch.box_tet10(0.3, 0.2, 0.4, 0.05)
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    kw = {"symmetric": symmetric} if kind == "groupell" else {}
+    Op = SolidOperatorGroupELL if kind == "groupell" else SolidOperatorCluster
+    ops = [Op.from_mesh(mesh.points, mesh.cells["tetra10"], 2e11, 0.3, dtype=dtype, device=d,
+                        **kw)[0] for d in ("cpu", cuda)]
+    mask = (np.random.default_rng(1).random(3 * mesh.num_nodes) > 0.1).astype(dtype)
+    ops = [op.with_free_mask(op.to_internal(mask)) for op in ops]
+    u = ops[0].to_internal(np.random.default_rng(2).standard_normal(3 * mesh.num_nodes)
+                           .astype(dtype))
+    n = _counted(f"take_rows/{np.dtype(dtype).name}")
+    got = ops[1].apply_constrained(torch.as_tensor(u, device=cuda)).cpu().numpy()
+    assert n() == ops[1].gathers_per_apply
+    want = ops[0].apply_constrained(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=np.abs(want).max() * rtol)
+    bj = [op.block_jacobi_tensors().cpu().numpy() for op in ops]
+    np.testing.assert_allclose(bj[1], bj[0], rtol=rtol, atol=np.abs(bj[0]).max() * rtol)
+
+
+@pytest.mark.parametrize("kind", ["groupell", "cluster"])
+def test_block_operator_analysis_matches_cpu(cuda, kind, tmp_path):
+    """The relabelled box of test_unstructured_solve_matches_cpu through
+    unstructured_operator=kind with the lattice MG, float64 and float32, on
+    the card and on the CPU."""
+    corners = [(x, 0.0, z) for x in (0, 0.2) for z in (0, 0.6)]
+    mesh = femx_torch.box_tet10(0.2, 0.2, 0.6, 0.05, force_points=[(0.1, 0.2, 0.3)],
+                                fix_points=corners)
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    path = tmp_path / "box.msh"
+    write_msh(path, mesh)
+    force = [{"force_x": 0, "force_y": 3000.0, "force_z": 0, "force_x_pstn": 0.1,
+              "force_y_pstn": 0.2, "force_z_pstn": 0.3}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in corners]
+    for dtype, method in ((np.float64, "lattice_mg_pcg"), (np.float32, "lattice_mg_pcg_mixed")):
+        runs = []
+        for d in ("cpu", "cuda"):
+            fa = femx_torch.SolidReactionAnalysis(str(path), force, fix, E=2e11, v=0.3,
+                                                  cg_tol=1e-10, verbose=False, device=d,
+                                                  dtype=dtype, unstructured_operator=kind)
+            fa.MG_DOF_THRESHOLD = 6000
+            runs.append(fa.run_simulation())
+        assert [r.solve_info["method"] for r in runs] == [f"{kind}_{method}"] * 2
+        R = [r.reaction_forces for r in runs]
+        np.testing.assert_allclose(R[1], R[0], rtol=1e-7, atol=np.abs(R[0]).max() * 1e-8)
+        np.testing.assert_allclose(runs[1].equilibrium_residual(), 0.0, atol=1e-6 * 3000.0)
 
 
 def test_unstructured_solve_matches_cpu(cuda, tmp_path):

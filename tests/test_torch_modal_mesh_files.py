@@ -1,6 +1,6 @@
 """femx_torch.SolidReactionAnalysis.modal on the transpose-gather routes of a
-.msh file (block-Jacobi and lattice MG) == femx's structured route on the
-same box, on the CPU (torch_modal_cases.py holds the cases and checks)."""
+.msh file (block-Jacobi and lattice MG) == femx's own TG routes on the
+same file, on the CPU (torch_modal_cases.py holds the cases and checks)."""
 
 import pytest
 import torch

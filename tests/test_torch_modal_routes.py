@@ -1,6 +1,6 @@
 """femx_torch.SolidReactionAnalysis.modal == femx's on the CPU on the box
-routes: structured block-Jacobi and multigrid, and the dense small-mesh
-route of a .msh file (torch_modal_cases.py holds the cases and checks)."""
+routes: structured block-Jacobi and multigrid, and the dense and generic
+block-Jacobi small-mesh routes of a .msh file (torch_modal_cases.py holds the cases and checks)."""
 
 import pytest
 import torch
@@ -20,8 +20,8 @@ def files(tmp_path_factory):
     return write_files(tmp_path_factory)
 
 
-@pytest.mark.parametrize("branch", ["dense_cholesky", "structured_block_jacobi_pcg",
-                                    "structured_multigrid_pcg"])
+@pytest.mark.parametrize("branch", ["dense_cholesky", "block_jacobi_pcg",
+                                    "structured_block_jacobi_pcg", "structured_multigrid_pcg"])
 def test_analysis_modal_matches_femx(branch, files):
     """f64 omega without and with refine at rtol 1e-6 of femx's refined
     ones (torch_modal_cases.check_analysis_modal)."""

@@ -215,19 +215,37 @@ def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schem
     (dict(unstructured_operator="cluster"), "A11"),
 ])
 def test_unported_options_raise(kw, item):
+    """The options still to port raise naming their ROADMAP item. A11
+    (group-ELL and cluster) is ported: its cases check that the option is
+    taken and builds its operator on an unstructured mesh."""
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
-    with pytest.raises(NotImplementedError, match=item):
-        femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
-                                         device="cpu", **kw)
+    if item != "A11":
+        with pytest.raises(NotImplementedError, match=item):
+            femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                             device="cpu", **kw)
+        return
+    from femx_torch.assembly_cluster import SolidOperatorCluster
+    from femx_torch.assembly_groupell import SolidOperatorGroupELL
+    from femx_torch.mesh import relabel_nodes
+
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    fa = femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                          device="cpu", **kw)
+    assert fa.unstructured_operator == kw["unstructured_operator"]
+    fa.DENSE_DOF_LIMIT = 0
+    fa.assemble_stiffness_matrix()
+    assert isinstance(fa.operator, {"groupell": SolidOperatorGroupELL,
+                                    "cluster": SolidOperatorCluster}[fa.unstructured_operator])
 
 
 def test_unported_inputs_raise(tmp_path):
-    """Mesh files and unstructured meshes are ported; the group-ELL operator,
-    a bad operator or solver name, a mesh without tets and reports are not."""
+    """Mesh files, unstructured meshes and the group-ELL operator are
+    ported; a bad operator or solver name, a mesh without tets and reports
+    are not."""
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
-    with pytest.raises(NotImplementedError, match="A11"):
-        femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
-                                         device="cpu", unstructured_operator="groupell")
+    fa = femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                          device="cpu", unstructured_operator="groupell")
+    assert fa.unstructured_operator == "groupell"
     for bad in (dict(unstructured_operator="bcsr"), dict(solver="lu")):
         with pytest.raises(ValueError):
             femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,

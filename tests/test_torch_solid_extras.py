@@ -1,7 +1,9 @@
 """femx_torch's solid extras == femx's on the CPU: the Tet10 stress terms
 (rtol 1e-13), compute_stresses on femx's displacements (1e-12),
-solve_cases on the structured, transpose-gather and small-mesh routes
-(displacements 1e-8, iterations per case within 1; float32 analyses to
+solve_cases on every single-device route (structured block-Jacobi and
+multigrid, transpose-gather block-Jacobi and lattice MG, the generic
+block-Jacobi and the dense small-mesh routes; displacements 1e-8,
+iterations per case within 1; float32 analyses to
 femx's float64 answers, 1e-6), checkpoint/resume
 (save/load, chunked CG, resume after a kill, and a checkpoint written by
 each package resumed by the other), and the profiling helpers."""
@@ -103,10 +105,13 @@ def small_file(tmp_path_factory):
     return path
 
 
-ROUTES = {  # method: (source, instance thresholds)
-    "structured_block_jacobi_pcg": ("box", {}),
-    "tg_block_jacobi_pcg": ("file", {"DENSE_DOF_LIMIT": 600}),
-    "dense_cholesky": ("file", {}),
+ROUTES = {  # method: (source, instance thresholds, constructor keywords)
+    "structured_block_jacobi_pcg": ("box", {}, {}),
+    "structured_multigrid_pcg": ("box", {"MG_DOF_THRESHOLD": 600}, {}),
+    "tg_block_jacobi_pcg": ("file", {"DENSE_DOF_LIMIT": 600}, {}),
+    "tg_lattice_mg_pcg": ("file", {"DENSE_DOF_LIMIT": 600, "MG_DOF_THRESHOLD": 600}, {}),
+    "block_jacobi_pcg": ("file", {}, {"solver": "cg"}),
+    "dense_cholesky": ("file", {}, {}),
 }
 
 
@@ -116,14 +121,14 @@ def test_solve_cases_matches_femx(method, small_file):
     through the stored preconditioner: the port's displacements at rtol
     1e-8 of femx's, iterations per case within 1, the same info keys."""
     dims, corners, fix, force = SMALL
-    src, limits = ROUTES[method]
+    src, limits, ctor = ROUTES[method]
     cases = [force(-500.0), force(300.0, fx=200.0, at=0.25), force(-100.0, at=0.75)]
     out = {}
     for pkg in (femx, femx_torch):
         mesh = pkg.box_tet10(*dims, 0.05, fix_points=corners) if src == "box" else small_file
         kw = {"device": "cpu"} if pkg is femx_torch else {}
         fa = pkg.SolidReactionAnalysis(mesh, force(-500.0), fix, E=E, v=NU, verbose=False,
-                                       cg_tol=1e-10, **kw)
+                                       cg_tol=1e-10, **ctor, **kw)
         for k, v in limits.items():
             setattr(fa, k, v)
         fa.run_simulation()

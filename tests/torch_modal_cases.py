@@ -51,17 +51,14 @@ def write_files(tmp_path_factory):
 
 
 # branch: (mesh source, constructor keywords, instance thresholds, the femx
-# branch it is held to). The transpose-gather branches are held to femx's
-# structured one: the relabelled file is the same box, so the same K and
-# the same lumped mass (femx checks its two routes agree,
-# tests/test_modal_structured.py:320).
+# branch it is held to): femx's own branch on the same mesh and settings.
 BRANCHES = {
     "structured_block_jacobi_pcg": ("box", {}, {}, "structured_block_jacobi_pcg"),
     "structured_multigrid_pcg": ("box", {"solver": "mg"}, {}, "structured_multigrid_pcg"),
-    "tg_block_jacobi_pcg": ("box file", {}, {"DENSE_DOF_LIMIT": 2000},
-                            "structured_block_jacobi_pcg"),
+    "tg_block_jacobi_pcg": ("box file", {}, {"DENSE_DOF_LIMIT": 2000}, "tg_block_jacobi_pcg"),
     "tg_lattice_mg_pcg": ("box file", {}, {"DENSE_DOF_LIMIT": 2000, "MG_DOF_THRESHOLD": 2000},
-                          "structured_block_jacobi_pcg"),
+                          "tg_lattice_mg_pcg"),
+    "block_jacobi_pcg": ("small file", {"solver": "cg"}, {}, "block_jacobi_pcg"),
     "dense_cholesky": ("small file", {}, {}, "dense_cholesky"),
 }
 
