@@ -80,7 +80,30 @@ Phases (any failure ends the run with a nonzero exit code):
                 u6[pairperm], width 6; cluster's largest u3[nodes] class)
                 against its plain version (exact), timed beside
                 index_select with its bytes bound.
-Phases 5-8, 10-14 each set the kernel launch counts to 0 just before
+ 15. beam and shaft — (a) the reference's portal frame through
+                BeamAnalysis (section warping FEMs on the card; their
+                Laplacian gathers are take_rows f64): consistent mass held to
+                the golden statics (2e-5) and frequencies, lumped mass to the
+                port's CPU run (1e-9); (b) a 10-storey, 4 x 4-bay steel
+                building frame (5,550 DOF, FrameBuilder, three I-section
+                warping FEMs, lateral and distributed loads), lumped and
+                consistent: stage times, reaction equilibrium <= 1e-8 |F|,
+                eigen-residuals of 20 modes under the dense eigensolve's
+                backward-error scale; its 3-storey cut against the CPU
+                (closed-form sections); (c) ShaftModalAnalysis on the test
+                fixture and a stepped 400-element shaft on 3 bearings: whirl
+                pairs within 1e3 eps lam_max / lam, Euler-Bernoulli, 60 f;
+ 16. plane and pipe — (a) the README's plane cantilever at 1024 x 256
+                cells (2,102,274 DOF, six MG levels, f64 MG-PCG, take_rows f64
+                in every apply): <= 25 iterations and within 3 of the CPU's at
+                256 x 64, Timoshenko tip deflection (3 %), equilibrium <= 1e-8
+                |F|, launches as counted, the solve profiled; (b) a 2,898-DOF
+                cantilever through the dense route and modal(6); (c) the pipe
+                at n_r=64, n_z=512 (264,450 DOF, axisymmetric MG-PCG) under
+                pressure (Lame) and a temperature drop (radial ODE); (d)
+                take_rows at (a)'s Tri6 gather, f32 and f64, exact, timed
+                beside index_select with its bytes bound.
+Phases 5-8, 10-16 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
 count its iteration counts imply. The .msh file of phase 8 (read again
 in 14(b)) is written under build/chip_smoke/ and deleted at the end.
@@ -1219,6 +1242,473 @@ def new_shape_rows(torch, ge, cl, mem_tb):
     return rows
 
 
+# -- phases 15-16: the beam, shaft, plane and pipe products ------------------
+EPS = float(np.finfo(np.float64).eps)
+GOLDEN_FREQS_HZ = np.array([16.8448, 33.4577, 44.0366, 104.8251, 234.9084,
+                            305.0161, 342.7343, 363.8935, 400.6217, 644.5324])
+PORTAL_SECTIONS = [
+    {"group": "l_section", "type": "I section",
+     "params": {"d": 0.05, "b": 0.025, "t_w": 0.005, "t_f": 0.005, "r": 0.001}},
+    {"group": "c_section", "type": "C section",
+     "params": {"d": 0.05, "b": 0.025, "t_f": 0.005, "t_w": 0.005, "r": 0.001}}]
+FIX_ALL = {"type": "Fix", "fix_x": True, "fix_y": True, "fix_z": True, "fix_rx": True,
+           "fix_ry": True, "fix_rz": True}
+# The building frame's rolled sections (d, b, t_f, t_w, root radius r; m):
+# UC 305x305x97 columns, UB 457x191x67 girders along x, UB 305x165x40
+# beams along y.
+BUILDING_SECTIONS = [
+    {"group": "column", "type": "I section",
+     "params": {"d": 0.3079, "b": 0.3053, "t_f": 0.0154, "t_w": 0.0099, "r": 0.0152}},
+    {"group": "girder", "type": "I section",
+     "params": {"d": 0.4534, "b": 0.1899, "t_f": 0.0127, "t_w": 0.0085, "r": 0.0102}},
+    {"group": "beam", "type": "I section",
+     "params": {"d": 0.3034, "b": 0.1650, "t_f": 0.0102, "t_w": 0.0060, "r": 0.0089}}]
+STOREY, BAY, BAYS = 3.5, 6.0, 4
+STOREYS, CUT_STOREYS = 10, 3  # 925 nodes / 5,550 DOF; the cut 1,770 DOF
+PLANE_CELLS, PLANE_CPU_CELLS = (1024, 256), (256, 64)  # 2,102,274 and 132,354 DOF
+PIPE_CELLS = (64, 512)  # (n_r, n_z): 264,450 DOF
+
+
+def frame_ndof(storeys):
+    """DOF of building_frame: joints plus one midside node per member."""
+    joints = (BAYS + 1) ** 2 * (storeys + 1)
+    members = (BAYS + 1) ** 2 * storeys + 2 * BAYS * (BAYS + 1) * storeys
+    return 6 * (joints + members)
+
+
+def lattice_ndof(cells):
+    return 2 * (2 * cells[0] + 1) * (2 * cells[1] + 1)
+
+
+def portal_analysis(femx_torch, rho, mass, device):
+    """The reference's portal frame (tests/test_reference_goldens.py:46-73)
+    through BeamAnalysis; returns (analysis, loaded node)."""
+    fb = femx_torch.FrameBuilder()
+    n0 = fb.add_node((0.0, 0.0, 0.0))
+    n1 = fb.add_node((0.0, 1.0, 0.0))
+    n2 = fb.add_node((0.7, 1.0, 0.0))
+    n3 = fb.add_node((0.7, 0.0, 0.0))
+    n4 = fb.add_node((0.35, 1.0, 0.0))
+    fb.add_vertex_group("fix", [n0, n3])
+    fb.add_vertex_group("load_y", [n4])
+    fb.add_member(n0, n1, "l_section")
+    fb.add_member(n3, n2, "l_section")
+    fb.add_member(n1, n4, "c_section")
+    fb.add_member(n4, n2, "c_section")
+    bcs = [{"group": "fix", **FIX_ALL},
+           {"group": "load_y", "type": "Force", "force_x": 0, "force_y": -3000.0, "force_z": 0}]
+    return femx_torch.BeamAnalysis(fb.build(), PORTAL_SECTIONS, bcs, E=E, nu=NU, rho=rho,
+                                   mass=mass, device=device), n4
+
+
+def portal_golden(torch, femx_torch):
+    """Phase 15(a): the golden portal frame on the card (consistent mass,
+    rho 7800: statics to 2e-5, the 10 frequencies under the bounds of
+    tests/test_reference_goldens.py:90-100); lumped, rho 7850, against the
+    port's own CPU run (1e-9)."""
+    ba, n4 = portal_analysis(femx_torch, 7800.0, "consistent", DEVICE)
+    launches, secs, res = counted(torch, ba.run)
+    u3 = res.u.reshape(-1, 6)[:, :3]
+    umax, smax = float(np.abs(u3).max()), float(res.smoothed_stresses.max())
+    f = res.natural_frequencies_hz[:10]
+    rel = np.abs(f - GOLDEN_FREQS_HZ) / GOLDEN_FREQS_HZ
+    log(f"   consistent, rho 7800: {secs:.3f} s, max |u| {umax:.6e} m at node "
+        f"{int(np.argmax(np.linalg.norm(u3, axis=1)))}, max stress {smax / 1e6:.4f} MPa at node "
+        f"{int(np.argmax(res.smoothed_stresses))}; f {f.round(4).tolist()} Hz, rel to the "
+        f"golden {rel.round(5).tolist()}; launches {launches}")
+    check(int(np.argmax(np.linalg.norm(u3, axis=1))) == n4, "max |u| not at node 4")
+    check(abs(umax / 3.0047e-3 - 1) <= 2e-5, f"max |u| {umax}")
+    check(int(np.argmax(res.smoothed_stresses)) == n4, "max stress not at node 4")
+    check(abs(smax / 1e6 / 283.4407 - 1) <= 2e-5, f"max stress {smax}")
+    check(rel[[0, 1, 3, 4, 6]].max() < 1e-3 and rel[[2, 8]].max() < 1e-2
+          and rel[[5, 7]].max() < 3.5e-2 and rel[9] < 0.11, f"golden frequencies {rel}")
+    card, _ = portal_analysis(femx_torch, 7850.0, "lumped", DEVICE)
+    cpu, _ = portal_analysis(femx_torch, 7850.0, "lumped", "cpu")
+    fc, fh = card.run().natural_frequencies, cpu.run().natural_frequencies
+    lumped_rel = float(np.abs(fc / fh - 1).max())
+    log(f"   lumped, rho 7850: {len(fc)} frequencies, card against CPU max rel {lumped_rel:.3e}")
+    check(lumped_rel <= 1e-9, "lumped frequencies: card and CPU disagree")
+    return {"launches": launches, "s": secs, "umax": umax, "smax_mpa": smax / 1e6,
+            "lumped_card_cpu_rel": lumped_rel}
+
+
+def building_frame(femx_torch, storeys, mass, device, section_method="auto"):
+    """A steel building frame of `storeys` 3.5 m storeys over a 4 x 4 grid of
+    6 m bays (FrameBuilder, every member in 2 elements): UC columns fixed at
+    the base, UB girders along x and beams along y, a lateral 10 kN x k/n
+    point load (x) at each of the five windward nodes of floor k, and 15 kN/m
+    of gravity on every girder and beam (DistributedForce)."""
+    fb = femx_torch.FrameBuilder()
+    grid = {}
+    for k in range(storeys + 1):
+        for i in range(BAYS + 1):
+            for j in range(BAYS + 1):
+                grid[i, j, k] = fb.add_node((i * BAY, j * BAY, k * STOREY))
+    for k in range(storeys):
+        for i in range(BAYS + 1):
+            for j in range(BAYS + 1):
+                fb.add_member(grid[i, j, k], grid[i, j, k + 1], "column", n_elems=2)
+    for k in range(1, storeys + 1):
+        for i in range(BAYS + 1):
+            for j in range(BAYS + 1):
+                if i < BAYS:
+                    fb.add_member(grid[i, j, k], grid[i + 1, j, k], "girder", n_elems=2)
+                if j < BAYS:
+                    fb.add_member(grid[i, j, k], grid[i, j + 1, k], "beam", n_elems=2)
+    fb.add_vertex_group("base", [grid[i, j, 0] for i in range(BAYS + 1)
+                                 for j in range(BAYS + 1)])
+    bcs = [{"group": "base", **FIX_ALL}]
+    for k in range(1, storeys + 1):
+        fb.add_vertex_group(f"wind{k}", [grid[0, j, k] for j in range(BAYS + 1)])
+        bcs.append({"group": f"wind{k}", "type": "Force", "force_x": 10e3 * k / storeys,
+                    "force_y": 0.0, "force_z": 0.0})
+    bcs += [{"group": g, "type": "DistributedForce", "wx": 0.0, "wy": 0.0, "wz": -15e3}
+            for g in ("girder", "beam")]
+    return femx_torch.BeamAnalysis(fb.build(), BUILDING_SECTIONS, bcs, E=E, nu=NU,
+                                   rho=7850.0, mass=mass, section_method=section_method,
+                                   device=device)
+
+
+def frame_checks(torch, ba, res, n_modes=20):
+    """Reaction equilibrium (force components, against |sum F|) and the
+    eigen-residuals of the first n_modes against the backward-error scale
+    1e3 eps (|K| + w^2 |M|) |phi| of a dense symmetric eigensolve (|.|_2,
+    from 60 power steps on the card). Returns the two worst ratios."""
+    fixed = res.fixed_dofs
+    r = res.K @ res.u - res.f
+    applied = res.f.reshape(-1, 6)[:, :3].sum(axis=0)
+    react = np.array([r[fixed[fixed % 6 == c]].sum() for c in range(3)])
+    eq = float(np.linalg.norm(react + applied) / np.linalg.norm(applied))
+    free = np.setdiff1d(np.arange(len(res.u)), fixed)
+    dev = torch.device(DEVICE)
+    K = torch.as_tensor(res.K[np.ix_(free, free)], device=dev)
+    M = torch.as_tensor(res.M[np.ix_(free, free)], device=dev)
+
+    def norm2(A):
+        x = torch.ones(A.shape[0], dtype=A.dtype, device=dev)
+        for _ in range(60):
+            x = A @ x
+            x = x / torch.linalg.vector_norm(x)
+        return float(torch.linalg.vector_norm(A @ x))
+
+    k2, m2 = norm2(K), norm2(M)
+    phi = torch.as_tensor(res.mode_shapes[free, :n_modes], device=dev)
+    w2 = torch.as_tensor(res.natural_frequencies[:n_modes] ** 2, device=dev)
+    resid = torch.linalg.vector_norm(K @ phi - (M @ phi) * w2, dim=0)
+    scale = 1e3 * EPS * (k2 + w2 * m2) * torch.linalg.vector_norm(phi, dim=0)
+    ratio = float((resid / scale).max())
+    log(f"   equilibrium |sum R + sum F| / |sum F| = {eq:.3e}; |K|_2 {k2:.4e}, |M|_2 "
+        f"{m2:.4e}; eigen-residuals of {n_modes} modes / (1e3 eps (|K| + w^2 |M|) |phi|): "
+        f"max {ratio:.3e}")
+    check(eq <= 1e-8, f"frame equilibrium {eq}")
+    check(ratio <= 1.0, f"eigen-residual ratio {ratio}")
+    return eq, ratio
+
+
+def building_frames(torch, femx_torch):
+    """Phase 15(b): the 10-storey frame (925 nodes, 5,550 DOF) with lumped,
+    then consistent mass, its stage times; a 3-storey cut (1,770 DOF) held
+    to the port's CPU run (closed-form sections on both: the warping FEMs
+    of the CPU run would take minutes)."""
+    out = {}
+    for mass in ("lumped", "consistent"):
+        ba = building_frame(femx_torch, STOREYS, mass, DEVICE)
+        launches, secs, res = counted(torch, lambda: ba.run(n_modes=20))
+        check(len(res.u) == frame_ndof(STOREYS), f"{len(res.u)} DOF")
+        log(f"   {STOREYS} storeys, {mass}: {secs:.3f} s, stages {json.dumps(ba.stage_times)}; f1-f3 "
+            f"{res.natural_frequencies_hz[:3].round(6).tolist()} Hz; launches {launches}")
+        eq, ratio = frame_checks(torch, ba, res)
+        out[mass] = {"s": secs, "stage_times": ba.stage_times, "launches": launches,
+                     "equilibrium": eq, "eigen_residual_ratio": ratio,
+                     "f1_hz": float(res.natural_frequencies_hz[0])}
+    card = building_frame(femx_torch, CUT_STOREYS, "consistent", DEVICE,
+                          "closed_form").run(n_modes=20)
+    cpu = building_frame(femx_torch, CUT_STOREYS, "consistent", "cpu", "closed_form").run(n_modes=20)
+    check(len(card.u) == frame_ndof(CUT_STOREYS), f"{len(card.u)} DOF in the cut")
+    u_rel = rel_diff(card.u, cpu.u)
+    f_rel = float(np.abs(card.natural_frequencies / cpu.natural_frequencies - 1).max())
+    log(f"   {CUT_STOREYS}-storey cut, card against CPU: u rel {u_rel:.3e}, 20 frequencies rel {f_rel:.3e}")
+    check(u_rel <= 1e-10 and f_rel <= 1e-8, "3-storey cut: card and CPU disagree")
+    out["cut"] = {"u_rel": u_rel, "f_rel": f_rel}
+    return out
+
+
+def eb_lateral_hz(n, L, d, rho=7850.0):
+    I, A = np.pi * d**4 / 64.0, np.pi * d**2 / 4.0
+    return (n * np.pi / L) ** 2 * np.sqrt(E * I / (rho * A)) / (2 * np.pi)
+
+
+def shaft_cases(torch, femx_torch):
+    """Phase 15(c): ShaftModalAnalysis on the test fixture
+    (tests/test_shaft_modal.py:29-35) and on a stepped shaft of 5 segments
+    on 3 bearings in 400 elements; whirl pairs held to the eigensolve's
+    rounding scale 1e3 eps lam_max / lam, critical speeds = 60 f."""
+    from femx_torch.modal import modal_dense
+
+    cases = {
+        "fixture": dict(segments=[{"length": 2.0, "d": 0.04}], bearings=[0.0, 2.0],
+                        n_elems=60),
+        "stepped": dict(segments=[{"length": 0.3, "d": 0.05}, {"length": 0.5, "d": 0.07},
+                                  {"length": 0.6, "d": 0.08, "d_inner": 0.03},
+                                  {"length": 0.5, "d": 0.07}, {"length": 0.3, "d": 0.05}],
+                        bearings=[0.15, 1.1, 2.05], n_elems=400),
+    }
+    out = {}
+    for label, kw in cases.items():
+        sm = femx_torch.ShaftModalAnalysis(E=E, nu=NU, rho=7850.0, verbose=False,
+                                           device=DEVICE, **kw)
+        launches, secs, _ = counted(torch, lambda: sm.run(n_modes=12))
+        res = sm.analysis.results
+        lam_max = float(modal_dense(res.K, res.M, res.fixed_dofs, device=DEVICE).omega.max()) ** 2
+        lat = sm.lateral_frequencies_hz()
+        lam = (2 * np.pi * lat) ** 2
+        splits = [abs(lam[i + 1] - lam[i]) / lam[i] for i in (0, 2)]
+        allowed = [1e3 * EPS * lam_max / lam[i] for i in (0, 2)]
+        log(f"   {label}: {len(sm.mesh.cells['line'])} elements, {secs:.3f} s; lateral "
+            f"{lat[:4].round(6).tolist()} Hz; whirl-pair splits {splits} against "
+            f"1e3 eps lam_max / lam = {allowed} (lam_max / lam_1 = {lam_max / lam[0]:.3e}); "
+            f"launches {launches}")
+        check(all(sp <= al for sp, al in zip(splits, allowed)), f"{label} whirl pairs split")
+        check(np.allclose(sm.critical_speeds_rpm, 60.0 * lat, rtol=1e-15), "critical speeds")
+        if label == "fixture":
+            for n, i in ((1, 0), (2, 2)):
+                eb = eb_lateral_hz(n, 2.0, 0.04)
+                check(abs(lat[i] / eb - 1) <= 0.01, f"pair {n} off Euler-Bernoulli {eb}")
+        out[label] = {"s": secs, "whirl_splits": splits, "allowed": allowed,
+                      "lam_max_over_lam1": lam_max / lam[0], "lateral_hz": lat[:4].tolist()}
+    return out
+
+
+CANTILEVER_2D = dict(L=1.0, H=0.2, t=0.01, P=-1000.0)
+
+
+def plane_cantilever(femx_torch, cells, device):
+    """The README's plane cantilever (README.md:282-285) at `cells`, through
+    rect_tri6_from_cells: left edge clamped, 1 kN down on the right edge."""
+    from femx_torch.mesh.generators2d import rect_tri6_from_cells
+
+    c = CANTILEVER_2D
+    mesh = rect_tri6_from_cells(cells, (c["L"] / cells[0], c["H"] / cells[1]))
+    return femx_torch.PlaneAnalysis(
+        mesh, [{"group": "right", "force_x": 0.0, "force_y": c["P"]}],
+        [{"group": "left", "fix_x": 0, "fix_y": 0}], E=E, v=NU, thickness=c["t"],
+        verbose=False, device=device)
+
+
+def mg_launches(info):
+    """take_rows launches of a 2D product's run with an MG-PCG solve: one
+    operator apply up front and one per iteration, applies_per_cycle for
+    each V-cycle (up front and per iteration), and one gather after the
+    solve (the plane's reactions, the pipe's stresses)."""
+    it = info["iterations"]
+    return it + 2 + info["applies_per_cycle"] * (it + 1)
+
+
+def plane_flagship(torch, femx_torch, bench):
+    """Phase 16(a): the plane cantilever at 1024 x 256 cells (2,102,274 DOF,
+    six levels) through PlaneAnalysis, f64 MG-PCG at cg_tol 1e-10: at most
+    25 iterations and within 3 of the port's CPU run at 256 x 64 cells, tip
+    deflection within 3 % of Timoshenko beam theory, equilibrium <= 1e-8
+    |F|, take_rows launches as counted; then the solve profiled once."""
+    c = CANTILEVER_2D
+    pa = plane_cantilever(femx_torch, PLANE_CELLS, DEVICE)
+    check(pa.ndof == lattice_ndof(PLANE_CELLS), f"{pa.ndof} DOF")
+    torch.cuda.reset_peak_memory_stats()
+    launches, secs, _ = counted(torch, pa.run_simulation)
+    info = pa.solve_info
+    log(f"   run_simulation {secs:.3f} s, stages {json.dumps(pa.stage_times)}")
+    log(f"   solve_info {info}")
+    check(info["method"] == "mg_pcg_2d"
+          and (PLANE_CELLS != (1024, 256) or len(info["mg_levels"]) == 6), info["method"])
+    want = {"take_rows/float64": mg_launches(info)}
+    log(f"   launch check: expect {want}, got {launches}")
+    check(launches == want, "plane launch count mismatch")
+    cpu = plane_cantilever(femx_torch, PLANE_CPU_CELLS, "cpu")
+    cpu.run_simulation()
+    it, it_cpu = info["iterations"], cpu.solve_info["iterations"]
+    log(f"   iterations: card {it} at {PLANE_CELLS}, CPU {it_cpu} at {PLANE_CPU_CELLS} cells")
+    check(info["converged"] and it <= 25 and abs(it - it_cpu) <= 3, "plane iterations")
+    I, A = c["t"] * c["H"] ** 3 / 12.0, c["t"] * c["H"]
+    G = E / (2 * (1 + NU))
+    delta_beam = abs(c["P"]) * c["L"] ** 3 / (3 * E * I) + abs(c["P"]) * c["L"] / (5 / 6 * G * A)
+    pts = pa.points
+    tip = np.where((np.abs(pts[:, 0] - c["L"]) < 1e-12)
+                   & (np.abs(pts[:, 1] - c["H"] / 2) < 1e-12))[0][0]
+    delta = abs(pa.u.reshape(-1, 2)[tip, 1])
+    eq = float(np.linalg.norm(pa.equilibrium_residual()) / abs(c["P"]))
+    log(f"   tip deflection {delta:.6e} m, Timoshenko {delta_beam:.6e} m (rel "
+        f"{delta / delta_beam - 1:.4e}); equilibrium {eq:.3e} |F|")
+    check(abs(delta / delta_beam - 1) <= 0.03, "tip deflection off beam theory")
+    check(eq <= 1e-8, f"plane equilibrium {eq}")
+    _, t_stress, _ = counted(torch, pa.compute_stresses)
+    check(np.all(np.isfinite(pa.von_mises)), "von Mises not finite")
+    t_solve = info["solve_s"]
+    t_prof, device_ms, events = bench.profiled(pa.solve, torch.device(DEVICE))
+    idle = 1 - device_ms / (t_prof * 1e3)
+    log(f"   compute_stresses {t_stress:.3f} s; profiled solve {t_prof:.3f} s wall, "
+        f"{device_ms:.1f} ms device -> idle {100 * idle:.1f} %; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    top = sorted((e for e in events if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    log("   device time by kernel: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top))
+    return {"launches": launches, "run_simulation_s": secs, "solve_s": t_solve,
+            "iterations": it, "cpu_iterations": it_cpu, "stage_times": pa.stage_times,
+            "tip_rel": delta / delta_beam - 1, "equilibrium": eq,
+            "profiled_solve_s": t_prof, "device_ms": device_ms, "idle_share": idle,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(), "analysis": pa}
+
+
+def plane_dense_modal(torch, femx_torch):
+    """Phase 16(b): a 2,898-DOF plane cantilever (80 x 4 cells, L/H = 20)
+    through the dense route and modal(n_modes=6): bending modes 1-2 within 2
+    % of Euler-Bernoulli, the axial mode within 1 % of the fixed-free bar
+    (tests/test_plane_analysis.py:225-255)."""
+    from femx_torch.mesh.generators2d import rect_tri6
+
+    L, H, t, rho = 1.0, 0.05, 0.01, 7850.0
+    pa = femx_torch.PlaneAnalysis(rect_tri6(L, H, 1.0 / 80), [],
+                                  [{"group": "left", "fix_x": 0, "fix_y": 0}], E=E, v=NU,
+                                  thickness=t, verbose=False, device=DEVICE)
+    launches, secs, _ = counted(torch, pa.run_simulation)
+    check(pa.solve_info["method"] == "dense_cholesky" and pa.ndof <= 6000, "dense route")
+    _, t_modal, res = counted(torch, lambda: pa.modal(n_modes=6, rho=rho))
+    f = res.omega.cpu().numpy() / (2 * np.pi)
+    I, A = t * H**3 / 12, t * H
+
+    def eb(beta):
+        return beta**2 / (2 * np.pi) * np.sqrt(E * I / (rho * A * L**4))
+
+    f_axial = np.sqrt(E / rho) / (4 * L)
+    log(f"   {pa.ndof} DOF: run_simulation {secs:.3f} s, modal {t_modal:.3f} s; f "
+        f"{f.round(4).tolist()} Hz; EB {eb(1.8751):.4f}, {eb(4.69409):.4f}; axial "
+        f"{f_axial:.4f}; launches {launches}")
+    check(abs(f[0] / eb(1.8751) - 1) < 0.02 and abs(f[1] / eb(4.69409) - 1) < 0.02,
+          "bending modes off Euler-Bernoulli")
+    check(np.abs(f / f_axial - 1).min() < 0.01, "no axial mode")
+    return {"launches": launches, "s": secs, "modal_s": t_modal, "f_hz": f.tolist()}
+
+
+def radial_fd_reference(a, b, v, alpha, Ti, To, pi=0.0, N=2001):
+    """Plane-strain radial thermoelastic BVP by finite differences
+    (tests/test_pipe_thermal.py:18-53): (r, u, sigma_rr, sigma_tt)."""
+    lam = E * v / ((1 + v) * (1 - 2 * v))
+    mu = E / (2 * (1 + v))
+    beta = alpha * E / (1 - 2 * v)
+    r = np.linspace(a, b, N)
+    h = r[1] - r[0]
+    T = Ti + (To - Ti) * np.log(r / a) / np.log(b / a)
+    dT = ((To - Ti) / np.log(b / a)) / r
+    A = np.zeros((N, N))
+    rhs = np.zeros(N)
+    c = lam + 2 * mu
+    for i in range(1, N - 1):
+        A[i, i - 1] = c * (1 / h**2 - 1 / (2 * h * r[i]))
+        A[i, i] = c * (-2 / h**2 - 1 / r[i] ** 2)
+        A[i, i + 1] = c * (1 / h**2 + 1 / (2 * h * r[i]))
+        rhs[i] = beta * dT[i]
+    A[0, 0] = c * (-3 / (2 * h)) + lam / a
+    A[0, 1] = c * (4 / (2 * h))
+    A[0, 2] = c * (-1 / (2 * h))
+    rhs[0] = beta * T[0] - pi
+    A[-1, -1] = c * (3 / (2 * h)) + lam / b
+    A[-1, -2] = c * (-4 / (2 * h))
+    A[-1, -3] = c * (1 / (2 * h))
+    rhs[-1] = beta * T[-1]
+    u = np.linalg.solve(A, rhs)
+    du = np.gradient(u, r, edge_order=2)
+    return r, u, c * du + lam * u / r - beta * T, lam * du + c * u / r - beta * T
+
+
+def pipe_cases(torch, femx_torch):
+    """Phase 16(c): PipeThermalAnalysis(0.05, 0.08, length=0.3) at n_r=64,
+    n_z=512 (264,450 DOF, axisymmetric MG-PCG), with 5 MPa internal pressure
+    only, against the Lame solution, then with T 200 -> 50 K, against the
+    radial ODE (tests/test_pipe_thermal.py's tolerances)."""
+    a, b, v, alpha = 0.05, 0.08, NU, 1.2e-5
+    out = {}
+    for label, kw in (("pressure", dict(pressure_inner=5e6)),
+                      ("thermal", dict(T_inner=200.0, T_outer=50.0))):
+        pt = femx_torch.PipeThermalAnalysis(a, b, length=0.3, E=E, v=v, alpha=alpha,
+                                            n_r=PIPE_CELLS[0], n_z=PIPE_CELLS[1],
+                                            verbose=False, device=DEVICE, **kw)
+        check(pt.ndof == lattice_ndof(PIPE_CELLS), f"{pt.ndof} DOF")
+        launches, secs, _ = counted(torch, pt.run_simulation)
+        info = pt.solve_info
+        want = {"take_rows/float64": mg_launches(info)}
+        log(f"   {label}: run_simulation {secs:.3f} s, solve_info {info}; launches {launches}, "
+            f"expect {want}")
+        check(info["method"] == "mg_pcg_2d" and info["converged"], "pipe route")
+        check(launches == want, "pipe launch count mismatch")
+        radii, u_r = pt.radial_profile(pt.u[0::2])
+        _, s_rr = pt.radial_profile(pt.stress_nodes[:, 0])
+        _, s_tt = pt.radial_profile(pt.stress_nodes[:, 2])
+        inner = slice(2, -2)
+        if label == "pressure":
+            p = 5e6
+            A_ = p * a**2 / (b**2 - a**2)
+            B_ = p * a**2 * b**2 / (b**2 - a**2)
+            rr_want, tt_want = A_ - B_ / radii**2, A_ + B_ / radii**2
+            u_want = (1 + v) / E * ((1 - 2 * v) * A_ * radii + B_ / radii)
+            errs = (float(np.abs(s_rr - rr_want)[inner].max() / p),
+                    float(np.abs(s_tt - tt_want)[inner].max() / p),
+                    float(abs(s_tt[0] / tt_want[0] - 1)),
+                    float(np.abs(u_r / u_want - 1).max()))
+            log(f"   Lame: interior s_rr {errs[0]:.3e} p, s_tt {errs[1]:.3e} p, bore hoop rel "
+                f"{errs[2]:.3e}, u_r rel {errs[3]:.3e}")
+            check(errs[0] < 4e-3 and errs[1] < 4e-3 and errs[2] < 0.01 and errs[3] < 1e-4,
+                  "pipe off Lame")
+        else:
+            r_fd, u_fd, rr_fd, tt_fd = radial_fd_reference(a, b, v, alpha, 200.0, 50.0)
+            scale = np.abs(tt_fd).max()
+            errs = (float(np.abs(u_r / np.interp(radii, r_fd, u_fd) - 1).max()),
+                    float(np.abs(s_rr - np.interp(radii, r_fd, rr_fd))[inner].max() / scale),
+                    float(np.abs(s_tt - np.interp(radii, r_fd, tt_fd))[inner].max() / scale))
+            log(f"   radial ODE: u_r rel {errs[0]:.3e}, interior s_rr {errs[1]:.3e}, s_tt "
+                f"{errs[2]:.3e} of the peak thermal stress")
+            check(errs[0] < 2e-4 and errs[1] < 5e-3 and errs[2] < 5e-3, "pipe off the radial ODE")
+        out[label] = {"launches": launches, "s": secs, "iterations": info["iterations"],
+                      "solve_s": info["solve_s"], "errors": errs}
+    return out
+
+
+def tri6_rows(torch, pa, mem_tb):
+    """Phase 16(d): take_rows at the plane flagship's element gather (table
+    (n_nodes, 2), index conn (E, 6)), f32 and f64, against its plain version
+    (exact) and timed beside index_select, with its bytes bound; and the
+    share of one f64 operator apply it takes."""
+    idx = pa.operator.conn
+    u = torch.as_tensor(np.random.default_rng(4).standard_normal(pa.ndof), device=DEVICE)
+    apply_ms = cuda_ms(lambda: pa.operator.apply(u))
+    flat64 = idx.reshape(-1).long()
+    rng = np.random.default_rng(3)
+    rows = {}
+    for dt in (np.float32, np.float64):
+        name = np.dtype(dt).name
+        tab = torch.as_tensor(rng.standard_normal((pa.num_nodes, 2)).astype(dt), device=DEVICE)
+        k = GATHER.take_rows(tab, idx)
+        p = GATHER.take_rows_plain(tab, idx)
+        torch.cuda.synchronize()
+        err = (k - p).abs().max().item()
+        check(err == 0.0, f"take_rows disagrees with plain at the Tri6 gather ({name})")
+        item = np.dtype(dt).itemsize
+        nbytes = tab.numel() * item + idx.numel() * 4 + k.numel() * item
+        row = dict(shape=f"u2 {tuple(tab.shape)}[conn {tuple(idx.shape)}]", max_abs_err=err,
+                   ms=cuda_ms(lambda: GATHER.take_rows(tab, idx)),
+                   plain_ms=cuda_ms(lambda: GATHER.take_rows_plain(tab, idx)),
+                   library_ms=cuda_ms(lambda: torch.index_select(tab, 0, flat64)),
+                   bound_ms=nbytes / (mem_tb * 1e12) * 1e3, bound_by="bytes", bytes=nbytes)
+        log(f"   take_rows {name} {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+            f"{row['plain_ms']:.5f} ms, index_select {row['library_ms']:.5f} ms; bytes bound "
+            f"{row['bound_ms']:.5f} ms ({nbytes / 1e6:.1f} MB, share "
+            f"{100 * row['bound_ms'] / row['ms']:.0f} %)")
+        rows[name] = row
+    log(f"   one f64 apply of the plane operator at {tuple(idx.shape)} elements: "
+        f"{apply_ms:.4f} ms (take_rows f64 {rows['float64']['ms']:.4f} ms of it)")
+    rows["float64"]["apply_ms"] = apply_ms
+    return rows
+
+
 def graph_device_ms(torch, fn, inner=10, reps=25):
     """Device time of one call of fn: a CUDA graph captures `inner` calls;
     each sample replays it behind a spin kernel long enough that the host has
@@ -1371,6 +1861,30 @@ def main() -> int:
         new_rows = new_shape_rows(torch, ubs["groupell"].op, ubs["cluster"].op, peaks[2])
         del ubs
 
+        log("15. beam and shaft products")
+        log(" (a) the golden portal frame through BeamAnalysis")
+        portal = portal_golden(torch, femx_torch)
+        paths["beam_portal"] = portal["launches"]
+        log(" (b) the 10-storey building frame, lumped and consistent mass")
+        frames = building_frames(torch, femx_torch)
+        for m in ("lumped", "consistent"):
+            paths[f"building_{m}"] = frames[m]["launches"]
+        log(" (c) ShaftModalAnalysis: the test fixture and a stepped shaft")
+        shafts = shaft_cases(torch, femx_torch)
+        log("16. plane and pipe products")
+        log(" (a) the plane cantilever at 1024 x 256 cells (MG-PCG)")
+        plane = plane_flagship(torch, femx_torch, bench)
+        paths["plane_flagship"] = plane["launches"]
+        log(" (b) the dense route and modal(n_modes=6)")
+        pdense = plane_dense_modal(torch, femx_torch)
+        paths["plane_dense"] = pdense["launches"]
+        log(" (c) PipeThermalAnalysis at n_r=64, n_z=512: pressure, then thermal")
+        pipes = pipe_cases(torch, femx_torch)
+        for k, rec in pipes.items():
+            paths[f"pipe_{k}"] = rec["launches"]
+        log(" (d) take_rows at the Tri6 gather")
+        tri6 = tri6_rows(torch, plane.pop("analysis"), peaks[2])
+
         def by_path(key):
             return {p: int(c.get(key, 0)) for p, c in paths.items()}
 
@@ -1395,6 +1909,7 @@ def main() -> int:
                 "path": "unstructured_flagship",
                 "launches": int(paths["unstructured_flagship"].get(key, 0)), **row,
                 **({"new_shapes": new_rows} if name == "float32" else {}),
+                "tri6_shape": tri6[name],
                 "launches_by_path": by_path(key)})
         kernels.append({
             "name": "take_along_axis", "dtype": "float32", "route": "cuda",
@@ -1453,7 +1968,17 @@ def main() -> int:
                for f in ("iterations", "run_simulation_s", "solve_s", "peak_device_bytes")},
             "tg_apply_ms": blk["groupell"]["tg_apply_ms"],
         "groupell_symmetric_apply_ms": sym["apply_ms"],
-            "groupell_full_apply_ms": sym["full_apply_ms"]}))
+            "groupell_full_apply_ms": sym["full_apply_ms"],
+            "portal_s": portal["s"], "portal_lumped_card_cpu_rel": portal["lumped_card_cpu_rel"],
+            **{f"building_{m}_{k}": frames[m][k] for m in ("lumped", "consistent")
+               for k in ("s", "stage_times", "equilibrium", "eigen_residual_ratio", "f1_hz")},
+            "building_cut_u_rel": frames["cut"]["u_rel"],
+            "building_cut_f_rel": frames["cut"]["f_rel"],
+            **{f"shaft_{k}_whirl_splits": v["whirl_splits"] for k, v in shafts.items()},
+            **{f"plane_{k}": v for k, v in plane.items() if k != "launches"},
+            "plane_dense_modal_s": pdense["modal_s"],
+            **{f"pipe_{k}_{f}": v[f] for k, v in pipes.items()
+               for f in ("s", "iterations", "solve_s", "errors")}}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"kernels": kernels}))

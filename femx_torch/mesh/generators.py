@@ -1,17 +1,19 @@
-"""Structured-box Tetra10 mesh generator (host numpy).
+"""Structured-box Tetra10 mesh generator and 3D frame builder (host numpy).
 
-Copy of the solid half of femx.mesh.generators for the port. The reference
+Copy of femx.mesh.generators for the port. The reference
 delegates meshing to gmsh (gmsh_creation.py:18-108) and only ever builds an
 axis-aligned box, so this is a deterministic structured Kuhn-subdivision
 Tetra10 box mesher with the same physical-group contract: "box" (3D),
 "Neumann_BCs" and "Diri_BCs" (0D vertices at the force/fix points).
 Off-lattice BC points are embedded as real mesh nodes by local node
 relocation with a positive-detJ guard (box_tet10_from_cells(embed_points=...)).
+FrameBuilder and cantilever_line_mesh build the 'line' meshes of the beam
+products.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -244,3 +246,81 @@ def box_tet10_from_cells(
     mesh.bc_embed_info = bc_embed_info
     mesh.validate()
     return mesh
+
+
+class FrameBuilder:
+    """Builds 1D line meshes (3D frames) with vertex/line physical groups.
+
+    Produces the mesh layout BeamSolver consumes: 'line' cells carrying the
+    section-assignment physical groups and 'vertex' cells carrying BC groups
+    (reference: BeamSolver.py:207-220, 326-328, 677-686).
+    """
+
+    def __init__(self):
+        self._points: List[np.ndarray] = []
+        self._lines: List[Tuple[int, int, str]] = []
+        self._vertex_groups: Dict[str, List[int]] = {}
+        self._line_groups: List[str] = []
+
+    def add_node(self, xyz: Sequence[float]) -> int:
+        self._points.append(np.asarray(xyz, dtype=np.float64))
+        return len(self._points) - 1
+
+    def add_member(self, n1: int, n2: int, group: str, n_elems: int = 1) -> List[int]:
+        """Add a straight member from node n1 to n2, subdivided into n_elems."""
+        if group not in self._line_groups:
+            self._line_groups.append(group)
+        chain = [n1]
+        if n_elems > 1:
+            p1, p2 = self._points[n1], self._points[n2]
+            for i in range(1, n_elems):
+                chain.append(self.add_node(p1 + (p2 - p1) * (i / n_elems)))
+        chain.append(n2)
+        for a, b in zip(chain[:-1], chain[1:]):
+            self._lines.append((a, b, group))
+        return chain
+
+    def add_vertex_group(self, name: str, node_ids: Sequence[int]) -> None:
+        self._vertex_groups.setdefault(name, []).extend(int(i) for i in node_ids)
+
+    def build(self) -> Mesh:
+        points = np.asarray(self._points, dtype=np.float64)
+        field_data: Dict[str, Tuple[int, int]] = {}
+        tag = 1
+        for name in self._vertex_groups:
+            field_data[name] = (tag, 0)
+            tag += 1
+        for name in self._line_groups:
+            field_data[name] = (tag, 1)
+            tag += 1
+
+        cells: Dict[str, np.ndarray] = {}
+        phys: Dict[str, np.ndarray] = {}
+        if self._vertex_groups:
+            vc, vp = [], []
+            for name, ids in self._vertex_groups.items():
+                for i in ids:
+                    vc.append([i])
+                    vp.append(field_data[name][0])
+            cells["vertex"] = np.asarray(vc, dtype=np.int32)
+            phys["vertex"] = np.asarray(vp, dtype=np.int32)
+        if self._lines:
+            cells["line"] = np.asarray([(a, b) for a, b, _ in self._lines], dtype=np.int32)
+            phys["line"] = np.asarray([field_data[g][0] for _, _, g in self._lines], dtype=np.int32)
+
+        mesh = Mesh(points=points, cells=cells, cell_physical=phys, field_data=field_data)
+        mesh.validate()
+        return mesh
+
+
+def cantilever_line_mesh(length: float = 2.0, n_elems: int = 2) -> Mesh:
+    """The canonical beam demo input: a cantilever along +x with groups
+    'fix' (root vertex), 'load_y' (tip vertex), 'beam' (line elements) —
+    the same layout as the reference's shipped cantilever_beam asset."""
+    fb = FrameBuilder()
+    n0 = fb.add_node((0.0, 0.0, 0.0))
+    n1 = fb.add_node((length, 0.0, 0.0))
+    fb.add_vertex_group("fix", [n0])
+    fb.add_vertex_group("load_y", [n1])
+    fb.add_member(n0, n1, "beam", n_elems=n_elems)
+    return fb.build()

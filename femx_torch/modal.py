@@ -58,35 +58,33 @@ def generalized_eigh_diag_mass(K: torch.Tensor, m_diag: torch.Tensor):
 
 def modal_dense(K, M, fixed_dofs, n_modes: Optional[int] = None, lam_min: float = 1e-6,
                 device=None) -> ModalResult:
-    """Host-partitioned modal solve on the free-free blocks (reference
-    semantics, BeamSolver.py:440-455, with a symmetric solver and true
-    eigenvectors); the eigensolve runs on `device`. Raises if M_ff is
-    singular."""
+    """Partitioned modal solve on the free-free blocks (reference semantics,
+    BeamSolver.py:440-455, with a symmetric solver and true eigenvectors);
+    the eigensolve runs on `device`. K and M are host arrays or tensors (a
+    tensor is partitioned on its own device). Raises if M_ff is singular."""
+    from femx_torch.solve.dense import _free_block
+
     dev = resolve_device(device)
-    K = np.asarray(K)
-    M = np.asarray(M)
     ndof = K.shape[0]
     free = np.setdiff1d(np.arange(ndof), np.asarray(fixed_dofs, dtype=np.int64))
-    K_ff = torch.as_tensor(K[np.ix_(free, free)], device=dev)
-    M_ff = M[np.ix_(free, free)]
-    diag = np.diag(M_ff)
-    if np.all(np.abs(M_ff - np.diag(diag)) < 1e-300):
-        if np.any(diag <= 0):
+    K_ff = _free_block(K, free, free, dev)
+    M_ff = _free_block(M, free, free, dev)
+    diag = torch.diagonal(M_ff).clone()
+    off = (M_ff - torch.diag(diag)).abs()
+    if off.numel() == 0 or bool(off.max() < 1e-300):
+        if bool((diag <= 0).any()):
             raise np.linalg.LinAlgError(
                 "Mass matrix is singular (zero lumped mass on a free DOF)")
-        lam, v = generalized_eigh_diag_mass(K_ff, torch.as_tensor(diag, device=dev))
+        lam, v = generalized_eigh_diag_mass(K_ff, diag)
     else:
-        lam, v = generalized_eigh_dense(K_ff, torch.as_tensor(M_ff, device=dev))
-    lam = lam.cpu().numpy()
-    v = v.cpu().numpy()
-    valid = lam > lam_min
-    lam, v = lam[valid], v[:, valid]
+        lam, v = generalized_eigh_dense(K_ff, M_ff)
+    valid = torch.nonzero(lam > lam_min).reshape(-1)
     if n_modes is not None:
-        lam, v = lam[:n_modes], v[:, :n_modes]
-    full = np.zeros((ndof, v.shape[1]))
-    full[free, :] = v
-    return ModalResult(omega=torch.as_tensor(np.sqrt(lam), device=dev),
-                       modes=torch.as_tensor(full, device=dev))
+        valid = valid[:n_modes]
+    lam, v = lam[valid], v[:, valid]
+    full = torch.zeros((ndof, v.shape[1]), dtype=v.dtype, device=dev)
+    full[torch.as_tensor(free, device=dev)] = v
+    return ModalResult(omega=torch.sqrt(lam), modes=full)
 
 
 class _MatrixFree(torch.Tensor):

@@ -20,23 +20,38 @@ def apply_dirichlet_dense(K: torch.Tensor, f: torch.Tensor, free_mask):
 
 def solve_dense(K: torch.Tensor, f, free_mask=None, assume_spd: bool = True) -> torch.Tensor:
     """Solve K u = f, optionally under a Dirichlet mask (1 free / 0 fixed).
-    SPD systems use Cholesky, others LU."""
+    SPD systems use Cholesky (NaNs when K is not positive definite), others
+    LU."""
     f = torch.as_tensor(f, dtype=K.dtype, device=K.device)
     if free_mask is not None:
         K, f = apply_dirichlet_dense(K, f, free_mask)
     if assume_spd:
-        L = torch.linalg.cholesky(K)
-        return torch.cholesky_solve(f[:, None], L)[:, 0]
+        # as jax.scipy's cho_factor, a matrix that is not positive definite
+        # gives NaNs, not an exception (femx's shaft with free_torsion=True
+        # solves its singular, unloaded static problem this way)
+        L, info = torch.linalg.cholesky_ex(K)
+        u = torch.cholesky_solve(f[:, None], L)[:, 0]
+        return u if int(info) == 0 else torch.full_like(u, float("nan"))
     return torch.linalg.solve(K, f)
 
 
+def _free_block(K, rows: np.ndarray, cols: np.ndarray, dev) -> torch.Tensor:
+    """K[rows][:, cols] as a float64 tensor on dev; a tensor K is indexed
+    where it lies, a host array on the host."""
+    if isinstance(K, torch.Tensor):
+        r = torch.as_tensor(rows, device=K.device)
+        c = torch.as_tensor(cols, device=K.device)
+        return K.index_select(0, r).index_select(1, c).to(device=dev, dtype=torch.float64)
+    return torch.as_tensor(np.asarray(K, dtype=np.float64)[np.ix_(rows, cols)], device=dev)
+
+
 def partitioned_solve(K, f, fixed_dofs, prescribed=None, device=None) -> np.ndarray:
-    """Host-partitioned solve (femx/solve/dense.py:32, the reference's
-    BeamSolver.py:409-418): reduce to the free-free block with numpy
-    indexing, solve it with solve_dense on `device` (None = CUDA), return
-    the full displacement vector (host numpy, float64)."""
+    """Partitioned solve (femx/solve/dense.py:32, the reference's
+    BeamSolver.py:409-418): reduce to the free-free block, solve it with
+    solve_dense on `device` (None = CUDA), return the full displacement
+    vector (host numpy, float64). K is a host array or a tensor (a tensor
+    is partitioned on its own device, so an assembled K never leaves it)."""
     dev = resolve_device(device)
-    K = np.asarray(K, dtype=np.float64)
     f = np.asarray(f, dtype=np.float64)
     ndof = K.shape[0]
     fixed = np.asarray(fixed_dofs, dtype=np.int64)
@@ -44,7 +59,7 @@ def partitioned_solve(K, f, fixed_dofs, prescribed=None, device=None) -> np.ndar
     u = np.zeros(ndof)
     if prescribed is not None:
         u[fixed] = np.asarray(prescribed)
-    rhs = f[free] - K[np.ix_(free, fixed)] @ u[fixed]
-    u[free] = solve_dense(torch.as_tensor(K[np.ix_(free, free)], device=dev),
-                          torch.as_tensor(rhs, device=dev)).cpu().numpy()
+    rhs = (torch.as_tensor(f[free], device=dev)
+           - _free_block(K, free, fixed, dev) @ torch.as_tensor(u[fixed], device=dev))
+    u[free] = solve_dense(_free_block(K, free, free, dev), rhs).cpu().numpy()
     return u

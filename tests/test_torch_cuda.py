@@ -503,3 +503,128 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     fa = run(cuda, checkpoint=path, checkpoint_chunk=100)
     assert fa.solve_info["resumed_iterations"] == 200 and fa.solve_info["converged"]
     np.testing.assert_allclose(fa.u, want, atol=np.abs(want).max() * 1e-7)
+
+
+# -- the beam, shaft, plane and pipe products ---------------------------------
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_take_rows_tri6_gather_is_exact(cuda, dtype):
+    """Rows of 2 by an (E, 6) connectivity: the 2D operators' gather."""
+    from femx_torch.mesh.generators2d import rect_tri6_from_cells
+
+    mesh = rect_tri6_from_cells((33, 7), (0.1, 0.1))
+    tab = torch.as_tensor(np.random.default_rng(3).standard_normal((mesh.num_nodes, 2))
+                          .astype(dtype), device=cuda)
+    idx = gather.index_tensor(mesh.cells["triangle6"], mesh.num_nodes, cuda)
+    n = _counted(f"take_rows/{np.dtype(dtype).name}")
+    got = gather.take_rows(tab, idx)
+    assert n() == 1 and got.shape == (len(idx), 6, 2)
+    torch.testing.assert_close(got, gather.take_rows_plain(tab, idx), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["plane", "axisym"])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+def test_2d_operator_apply_matches_cpu(cuda, kind, dtype, rtol):
+    from femx_torch.assembly_plane import AxisymOperator, PlaneOperator
+    from femx_torch.elements import tri6
+    from femx_torch.mesh.generators2d import rect_tri6_from_cells
+
+    mesh = rect_tri6_from_cells((20, 12), (0.01, 0.02), origin=(0.05, 0.0))
+    args = (mesh.points, mesh.cells["triangle6"])
+    if kind == "plane":
+        ops = [PlaneOperator.from_mesh(*args, tri6.material_matrix_plane(2e11, 0.3),
+                                       thickness=0.01, dtype=dtype, device=d)[0]
+               for d in ("cpu", cuda)]
+    else:
+        ops = [AxisymOperator.from_mesh(*args, tri6.material_matrix_axisym(2e11, 0.3),
+                                        dtype=dtype, device=d)[0] for d in ("cpu", cuda)]
+    mask = (np.random.default_rng(1).random(ops[0].ndof) > 0.1).astype(np.float64)
+    ops = [op.with_free_mask(mask) for op in ops]
+    u = np.random.default_rng(2).standard_normal(ops[0].ndof).astype(dtype)
+    n = _counted(f"take_rows/{np.dtype(dtype).name}")
+    got = ops[1].apply_constrained(torch.as_tensor(u, device=cuda)).cpu().numpy()
+    assert n() == 1
+    want = ops[0].apply_constrained(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=np.abs(want).max() * rtol)
+    want = ops[0].block_jacobi_inverse_blocks().numpy()
+    np.testing.assert_allclose(ops[1].block_jacobi_inverse_blocks().cpu().numpy(), want,
+                               rtol=rtol, atol=np.abs(want).max() * rtol)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_plane_analysis_matches_cpu(cuda, dtype):
+    """PlaneAnalysis' MG route (f64 CG; with float32 the float32 V-cycle)
+    on the card against the CPU: u to 1e-10, the same iterations, and
+    take_rows launches as the solve implies."""
+    from femx_torch.mesh.generators2d import rect_tri6_from_cells
+
+    def run(device):
+        mesh = rect_tri6_from_cells((64, 16), (1.0 / 64, 0.2 / 16))
+        pa = femx_torch.PlaneAnalysis(mesh, [{"group": "right", "force_x": 0.0,
+                                              "force_y": -1000.0}],
+                                      [{"group": "left", "fix_x": 0, "fix_y": 0}], E=2e11,
+                                      v=0.3, thickness=0.01, dtype=dtype, verbose=False,
+                                      device=device)
+        return pa.run_simulation()
+
+    want = run("cpu")
+    key = f"take_rows/{np.dtype(dtype).name}"
+    n = _counted(key)
+    got = run(cuda)
+    info = got.solve_info
+    assert info["method"].startswith("mg_pcg_2d") and info["converged"]
+    assert abs(info["iterations"] - want.solve_info["iterations"]) <= 1
+    it, cycles = info["iterations"], info["applies_per_cycle"] * (info["iterations"] + 1)
+    # float64: every operator apply and V-cycle apply; float32: the V-cycles
+    # on the float32 operator, the CG applies on the float64 one
+    assert n() == (it + 2 + cycles if dtype == np.float64 else cycles)
+    assert np.abs(got.u - want.u).max() <= 1e-10 * np.abs(want.u).max()
+    assert np.abs(got.equilibrium_residual()).max() <= 1e-8 * 1000.0
+
+
+def test_beam_shaft_and_pipe_match_cpu(cuda):
+    """BeamAnalysis (warping-FEM sections on the card), ShaftModalAnalysis
+    and PipeThermalAnalysis' MG route on the card against the CPU."""
+    def frame(device):
+        fb = femx_torch.FrameBuilder()
+        a, b = fb.add_node((0.0, 0.0, 0.0)), fb.add_node((0.0, 0.0, 2.0))
+        c = fb.add_node((1.5, 0.5, 2.0))
+        fb.add_vertex_group("base", [a])
+        fb.add_vertex_group("tip", [c])
+        fb.add_member(a, b, "col", n_elems=4)
+        fb.add_member(b, c, "arm", n_elems=4)
+        secs = [{"group": "col", "type": "I section",
+                 "params": {"d": 0.05, "b": 0.025, "t_w": 0.005, "t_f": 0.005, "r": 0.001}},
+                {"group": "arm", "type": "hollow box section",
+                 "params": {"d": 0.04, "b": 0.03, "t": 0.004}}]
+        bcs = [{"group": "base", "type": "Fix", "fix_x": True, "fix_y": True, "fix_z": True,
+                "fix_rx": True, "fix_ry": True, "fix_rz": True},
+               {"group": "tip", "type": "Force", "force_x": 100.0, "force_y": -300.0,
+                "force_z": 50.0},
+               {"group": "arm", "type": "DistributedForce", "wz": -200.0}]
+        return femx_torch.BeamAnalysis(fb.build(), secs, bcs, E=2e11, nu=0.3, rho=7850.0,
+                                       mass="consistent", device=device).run(n_modes=8)
+
+    got, want = frame(cuda), frame("cpu")
+    for a, b in ((got.u, want.u), (got.smoothed_stresses, want.smoothed_stresses)):
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
+    np.testing.assert_allclose(got.natural_frequencies, want.natural_frequencies, rtol=1e-9)
+
+    def shaft(device):
+        sm = femx_torch.ShaftModalAnalysis([{"length": 1.0, "d": 0.03}], [0.0, 1.0], E=2e11,
+                                           nu=0.3, rho=7850.0, n_elems=30, verbose=False,
+                                           device=device)
+        sm.run(n_modes=6)
+        return np.array([m.frequency_hz for m in sm.modes])
+
+    np.testing.assert_allclose(shaft(cuda), shaft("cpu"), rtol=1e-9)
+
+    def pipe(device):
+        pt = femx_torch.PipeThermalAnalysis(0.05, 0.08, 0.1, E=2e11, v=0.3, alpha=1.2e-5,
+                                            T_inner=200.0, T_outer=50.0, pressure_inner=5e6,
+                                            n_r=16, n_z=128, verbose=False, device=device)
+        return pt.run_simulation()
+
+    got, want = pipe(cuda), pipe("cpu")
+    assert got.solve_info["method"] == "mg_pcg_2d"
+    assert np.abs(got.stress_nodes - want.stress_nodes).max() <= 1e-9 * np.abs(
+        want.stress_nodes).max()

@@ -146,3 +146,47 @@ print(default_dtype(), fa.operator.dtype, fa.solve_info["method"])
     p = _run(code)
     assert p.returncode == 0, p.stdout + p.stderr
     assert p.stdout.split() == [f"torch.{env_dtype}", env_dtype, method]
+
+
+def _entry_points():
+    """Each new entry point called with its device left to the default."""
+    import femx_torch
+    from femx_torch.assembly_plane import AxisymOperator, PlaneOperator
+    from femx_torch.mesh.generators2d import rect_tri6
+    from femx_torch.sections import compute_properties
+    from femx_torch.sections.geometry import rectangular
+    from femx_torch.sections.warping import warping_constants
+    from femx_torch.solve.multigrid2d import Multigrid2D
+
+    line = femx_torch.cantilever_line_mesh(1.0, 2)
+    plane = rect_tri6(1.0, 0.5, 0.25)
+    conn, pts = plane.cells["triangle6"], plane.points
+    C3, C4 = np.eye(3), np.eye(4)
+    return {
+        "BeamAnalysis": lambda: femx_torch.BeamAnalysis(line, [], [], E=2e11, nu=0.3),
+        "ShaftModalAnalysis": lambda: femx_torch.ShaftModalAnalysis(
+            [{"length": 1.0, "d": 0.02}], [0.0, 1.0], E=2e11, nu=0.3, rho=7850.0),
+        "PlaneAnalysis": lambda: femx_torch.PlaneAnalysis(plane, [], [], E=2e11, v=0.3),
+        "PipeThermalAnalysis": lambda: femx_torch.PipeThermalAnalysis(
+            0.05, 0.08, 0.1, E=2e11, v=0.3, alpha=1e-5),
+        "compute_properties": lambda: compute_properties("I section", {
+            "d": 0.05, "b": 0.025, "t_f": 0.005, "t_w": 0.005}),
+        "calculate_section_properties": lambda: femx_torch.calculate_section_properties(
+            "circular section", {"d": 0.04}),
+        "warping_constants": lambda: warping_constants(rectangular(0.02, 0.01)),
+        "PlaneOperator": lambda: PlaneOperator.from_mesh(pts, conn, C3),
+        "AxisymOperator": lambda: AxisymOperator.from_mesh(pts, conn, C4),
+        "Multigrid2D": lambda: Multigrid2D("plane", (4, 2), (0.25, 0.25), (0.0, 0.0), C3,
+                                           np.ones(2 * len(pts))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(["BeamAnalysis", "ShaftModalAnalysis", "PlaneAnalysis",
+                                         "PipeThermalAnalysis", "compute_properties",
+                                         "calculate_section_properties", "warping_constants",
+                                         "PlaneOperator", "AxisymOperator", "Multigrid2D"]))
+def test_new_entry_points_raise_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()

@@ -138,10 +138,12 @@ def test_packed_cell_matrix_is_cached_per_tensor_and_version():
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("width,shape", [(1, (50,)), (3, (10, 40)), (128, (8, 16)), (0, (7,))])
+@pytest.mark.parametrize("width,shape", [(1, (50,)), (2, (10, 6)), (3, (10, 40)),
+                                         (128, (8, 16)), (0, (7,))])
 def test_take_rows_plain_matches_jnp_take(dtype, width, shape):
     """Widths 1, 3 and 128 and a 1-D table (width 0 here), the shapes the
-    three take_rows kernels serve, against jnp.take along axis 0."""
+    three take_rows kernels serve, and the 2D operators' Tri6 gather (rows
+    of 2, (E, 6) indices), against jnp.take along axis 0."""
     rng = np.random.default_rng(3)
     tab = rng.standard_normal((200, width) if width else (200,)).astype(dtype)
     idx = rng.integers(0, 200, size=shape)
