@@ -58,11 +58,11 @@ Phases (any failure ends the run with a nonzero exit code):
                 operator, first and steady, then shift_invert_refine through
                 pcg_refined to a true residual of 1e-9, against BENCH_r05's
                 parity numbers (22 +- 4 inner solves, f1-f3 within 1e-2,
-                refined f1 within 1e-5, bounds); (b) modal(n_modes=10),
+                refined f1 within 1e-5, bounds); (b) modal(n_modes=6),
                 compute_stresses (rows held to the CPU's) and solve_cases
                 (3 cases) on phase 6's analysis; (c) phase 5's case with
                 checkpoint= (chunks of 100) cut at 300 iterations, then
-                resumed by a second analysis; (d) modal(n_modes=6,
+                resumed by a second analysis; (d) modal(n_modes=3,
                 refine=True) on phase 11's mesh-file default (take_rows f64)
                 and phase 5's structured default (cell kernel f64), their
                 frequencies within 1e-6; (a) runs through femx_torch.bench;
@@ -103,10 +103,33 @@ Phases (any failure ends the run with a nonzero exit code):
                 pressure (Lame) and a temperature drop (radial ODE); (d)
                 take_rows at (a)'s Tri6 gather, f32 and f64, exact, timed
                 beside index_select with its bytes bound.
-Phases 5-8, 10-16 each set the kernel launch counts to 0 just before
+ 17. host surface — (a) femx_torch.cli.main(["solid", "--box", ...]) on
+                phase 6's lattice (1,390,179 DOF; the CLI's float64 MG-PCG,
+                on the card by default) with --stress --report .docx --html:
+                launches as counted, corner reactions within 1e-6 of the load
+                of phase 6's, equilibrium, the .docx opened (reaction table,
+                stress section); stage, stress, report and HTML times, HTML
+                size; (b) .md and .docx reports of the analyses phases 5,
+                15(b), 15(c) and 16 solved, no new solve; (c) `python -m
+                femx_torch` subprocesses: mesh-box then solid --msh (TG:
+                take_rows launched, reactions held to phase 5's to the printed
+                digits), and shaft, plane (MG route), pipe and section (warping
+                FEM) with --json, started together; (d) every product's plot
+                when matplotlib is installed ("matplotlib: absent" otherwise).
+ 18. conv apply — (a) at 24x24x96, float32 and float64: the conv-form
+                apply (femx_torch.assembly_conv, cuDNN with TF32 off) against
+                the slot apply with the cell kernel (max difference over max
+                value), CUDA-event ms of both in turns, device kernels per
+                apply, the 24-channel correlation alone beside its bound; (b)
+                phase 6's analysis with structured_apply="conv": iterations
+                within 1 of phase 6's, corner reactions within 1e-7, launches
+                as counted (the coarse levels only), warm solve beside phase
+                6's.
+Phases 5-8, 10-18 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
 count its iteration counts imply. The .msh file of phase 8 (read again
-in 14(b)) is written under build/chip_smoke/ and deleted at the end.
+in 14(b)) is written under build/chip_smoke/ and deleted at the end, as
+is phase 17's directory there.
 The last two lines are a {"kernels": [...]} JSON object and the
 {"ok": true, "device": {...}} JSON object. Without CUDA it exits nonzero and
 prints no result.
@@ -116,9 +139,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -960,29 +986,35 @@ def bench_modal(torch, bench, sb):
             "modal_peak_device_bytes": peak}
 
 
+# modes of phase 13(b)'s analysis modal (6, not 10, and 3 in 13(d): the
+# whole run must stay well inside its time limit on a slow host)
+ANALYSIS_MODES = 6
+
+
 def analysis_extras(torch, femx_torch, fa):
-    """Phase 13(b): modal(n_modes=10), compute_stresses and solve_cases on
+    """Phase 13(b): modal(n_modes=6), compute_stresses and solve_cases on
     phase 6's corner-fixed f32 flagship analysis."""
     from femx_torch.analysis.solid import nodal_stresses
 
     per_vcycle = 5 * (len(fa._precond.levels) - 1)
     out = {}
-    launches, t_modal, res = counted(torch, lambda: fa.modal(n_modes=10, rho=RHO))
+    launches, t_modal, res = counted(torch, lambda: fa.modal(n_modes=ANALYSIS_MODES, rho=RHO))
     info = fa.modal_info
     want = {f"{SCM}/float32": pcg_launches(info["inner_iterations"], 1, per_vcycle)}
     f_hz = res.omega.cpu().numpy() / (2 * np.pi)
     V = res.modes.double()
     mass = torch.as_tensor(fa.operator.to_global(fa._lumped_mass(RHO)), device=DEVICE)
-    orth = float((V.T @ (mass[:, None] * V) - torch.eye(10, dtype=V.dtype, device=DEVICE))
+    orth = float((V.T @ (mass[:, None] * V)
+                  - torch.eye(ANALYSIS_MODES, dtype=V.dtype, device=DEVICE))
                  .abs().max())
-    log(f"   fa.modal(n_modes=10): {t_modal:.6f} s, {info['iterations']} inner solves of "
+    log(f"   fa.modal(n_modes={ANALYSIS_MODES}): {t_modal:.6f} s, {info['iterations']} inner solves of "
         f"{info['inner_iterations']} iterations; f = {f_hz.tolist()} Hz; "
         f"max|V^T M V - I| = {orth:.3e}; launch check: expect {want}, got {launches}")
     check(launches == want, "analysis modal launch count mismatch")
-    check(res.modes.shape == (3 * fa.num_nodes, 10) and np.all(f_hz > 0)
+    check(res.modes.shape == (3 * fa.num_nodes, ANALYSIS_MODES) and np.all(f_hz > 0)
           and np.all(np.diff(f_hz) >= 0), "frequencies not positive and ascending")
     check(orth <= 1e-4, "modes not mass-orthonormal")
-    out.update(analysis_modal10_s=t_modal, analysis_modal_f_hz=f_hz.tolist(),
+    out.update(analysis_modal_s=t_modal, analysis_modal_f_hz=f_hz.tolist(),
                analysis_modal_inner_solves=info["iterations"], launches_modal=launches)
 
     torch.cuda.reset_peak_memory_stats()
@@ -1068,7 +1100,7 @@ def checkpoint_case(torch, femx_torch, R_default, R_iterations):
 
 
 def mesh_file_modal(torch, fa_file, fa_default):
-    """Phase 13(d): modal(n_modes=6, tol=1e-6, refine=True) on phase 11's
+    """Phase 13(d): modal(n_modes=3, tol=1e-6, refine=True) on phase 11's
     mesh-file default (TG + block-Jacobi, f64: take_rows) and on phase 5's
     structured default (the f64 cell kernel): the same K and lumped mass,
     so the same frequencies."""
@@ -1076,7 +1108,7 @@ def mesh_file_modal(torch, fa_file, fa_default):
     for label, fa, key, per in (
             ("mesh_file_modal", fa_file, "take_rows/float64", fa_file.operator.gathers_per_apply),
             ("default_modal", fa_default, f"{SCM}/float64", 1)):
-        launches, t, res = counted(torch, lambda fa=fa: fa.modal(n_modes=6, tol=1e-6,
+        launches, t, res = counted(torch, lambda fa=fa: fa.modal(n_modes=3, tol=1e-6,
                                                                   refine=True))
         info = fa.modal_info
         its = info["inner_iterations"] + info["refine_iterations"]
@@ -1421,6 +1453,8 @@ def building_frames(torch, femx_torch):
         out[mass] = {"s": secs, "stage_times": ba.stage_times, "launches": launches,
                      "equilibrium": eq, "eigen_residual_ratio": ratio,
                      "f1_hz": float(res.natural_frequencies_hz[0])}
+        if mass == "lumped":  # phase 17 reports and plots it
+            out[mass]["analysis"] = (ba, res)
     card = building_frame(femx_torch, CUT_STOREYS, "consistent", DEVICE,
                           "closed_form").run(n_modes=20)
     cpu = building_frame(femx_torch, CUT_STOREYS, "consistent", "cpu", "closed_form").run(n_modes=20)
@@ -1475,7 +1509,8 @@ def shaft_cases(torch, femx_torch):
                 eb = eb_lateral_hz(n, 2.0, 0.04)
                 check(abs(lat[i] / eb - 1) <= 0.01, f"pair {n} off Euler-Bernoulli {eb}")
         out[label] = {"s": secs, "whirl_splits": splits, "allowed": allowed,
-                      "lam_max_over_lam1": lam_max / lam[0], "lateral_hz": lat[:4].tolist()}
+                      "lam_max_over_lam1": lam_max / lam[0], "lateral_hz": lat[:4].tolist(),
+                      "analysis": sm}
     return out
 
 
@@ -1586,7 +1621,8 @@ def plane_dense_modal(torch, femx_torch):
     check(abs(f[0] / eb(1.8751) - 1) < 0.02 and abs(f[1] / eb(4.69409) - 1) < 0.02,
           "bending modes off Euler-Bernoulli")
     check(np.abs(f / f_axial - 1).min() < 0.01, "no axial mode")
-    return {"launches": launches, "s": secs, "modal_s": t_modal, "f_hz": f.tolist()}
+    return {"launches": launches, "s": secs, "modal_s": t_modal, "f_hz": f.tolist(),
+            "analysis": pa}
 
 
 def radial_fd_reference(a, b, v, alpha, Ti, To, pi=0.0, N=2001):
@@ -1668,7 +1704,7 @@ def pipe_cases(torch, femx_torch):
                 f"{errs[2]:.3e} of the peak thermal stress")
             check(errs[0] < 2e-4 and errs[1] < 5e-3 and errs[2] < 5e-3, "pipe off the radial ODE")
         out[label] = {"launches": launches, "s": secs, "iterations": info["iterations"],
-                      "solve_s": info["solve_s"], "errors": errs}
+                      "solve_s": info["solve_s"], "errors": errs, "analysis": pt}
     return out
 
 
@@ -1753,6 +1789,380 @@ def host_us(torch, fn, calls=2000):
     return t / calls * 1e6
 
 
+# -- phases 17-18: the host surface and the conv-form structured apply --------
+# FP64 outside the tensor cores (NVIDIA data sheets, dense): cuDNN's float64
+# convolution is not known to use DMMA, so its bound is taken at this rate.
+FP64_VECTOR = {"H100 SXM": 34.0, "H100 PCIe": 25.6}
+_PNG = b"\x89PNG\r\n\x1a\n"
+
+
+def flagship_cli_args(out_dir):
+    """`femx_torch solid` on phase 6's box, loads and fixes, with stresses,
+    a .docx report and the HTML viewer written to out_dir."""
+    args = ["solid", "--box", "0.4", "0.4", "1.6", "--mesh-size", repr(H), "--E", repr(E),
+            "--nu", repr(NU), "--force", "0,-1000,0@0.2,0.4,1.6"]
+    for x, y, z in CORNERS_FLAGSHIP:
+        args += ["--fix", f"{x},{y},{z}:xyz"]
+    return args + ["--stress", "--report", os.path.join(out_dir, "flagship_report.docx"),
+                   "--html", os.path.join(out_dir, "flagship.html")]
+
+
+def docx_text(path):
+    """word/document.xml of a .docx (a valid zip, or this raises)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        check(z.testzip() is None, f"{path}: corrupt zip member")
+        return z.read("word/document.xml").decode()
+
+
+def cli_flagship(torch, femx_torch, R_flagship, out_dir):
+    """Phase 17(a): femx_torch.cli.main on phase 6's 1,390,179-DOF box with
+    --stress --report .docx --html, on the card by default (the CLI's
+    float64: f64 MG-PCG at cg_tol 1e-10). The analysis the CLI builds is
+    recorded (a subclass that also times its report, viewer and stress
+    calls); its launches counted, its corner reactions held to phase 6's to
+    1e-6 of the load, its equilibrium, and the .docx opened."""
+    from unittest import mock
+
+    import femx_torch.analysis
+    from femx_torch import cli
+
+    made = []
+    base = femx_torch.analysis.SolidReactionAnalysis
+
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.host_times = {}
+            made.append(self)
+
+        def _timed(self, key, fn, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.host_times[key] = time.perf_counter() - t0
+            return out
+
+        def compute_stresses(self):
+            return self._timed("compute_stresses_s", super().compute_stresses)
+
+        def generate_report(self, filename="FEM_Report.md"):
+            return self._timed("report_s", super().generate_report, filename)
+
+        def export_html(self, filename="fem_result.html", factor=1.0):
+            return self._timed("html_s", super().export_html, filename, factor)
+
+    args = flagship_cli_args(out_dir)
+    with mock.patch.object(femx_torch.analysis, "SolidReactionAnalysis", Recorded):
+        launches, secs, rc = counted(torch, lambda: cli.main(args))
+    check(rc == 0 and len(made) == 1, f"cli.main returned {rc}")
+    fa = made[0]
+    info = fa.solve_info
+    check(fa.device.type == "cuda", f"the CLI ran on {fa.device}")
+    check(info["method"] == "structured_multigrid_pcg" and info["converged"], str(info))
+    it, levels = info["iterations"], len(fa._precond.levels)
+    want = {f"{SCM}/float64": it + 2 + 5 * (levels - 1) * (it + 1)}
+    log(f"   cli.main {secs:.3f} s; solve_info {info}")
+    log(f"   stage_times {json.dumps(fa.stage_times)}; host {json.dumps(fa.host_times)}")
+    log(f"   launch check: {it} iterations, {levels} levels -> expect {want}, got {launches}")
+    check(launches == want, "CLI flagship launch count mismatch")
+    R = corner_reactions(fa)
+    eq = fa.equilibrium_residual()
+    dR = float(np.abs(R - R_flagship).max())
+    log(f"   corner reactions {R.tolist()}; max |R - R(phase 6)| {dR:.3e} N; equilibrium "
+        f"{eq.tolist()}")
+    check(dR <= 1e-6 * 1000.0, "CLI corner reactions differ from phase 6's")
+    check(np.linalg.norm(eq) <= 1e-6 * 1000.0, f"CLI equilibrium {eq}")
+    doc = docx_text(os.path.join(out_dir, "flagship_report.docx"))
+    check("Total Reaction" in doc and "Stress Results (von Mises, nodal-averaged)" in doc,
+          "the .docx lacks the reaction table or the stress section")
+    check(doc.count("<w:tr>") >= 1 + 4 + 1, "reaction table rows")
+    html_bytes = os.path.getsize(os.path.join(out_dir, "flagship.html"))
+    vm_max = float(np.max(fa.nodal_von_mises))
+    log(f"   report {fa.host_times['report_s']:.3f} s, HTML {fa.host_times['html_s']:.3f} s, "
+        f"{html_bytes} bytes; max von Mises {vm_max / 1e6:.4f} MPa")
+    return {"launches": launches, "s": secs, "iterations": it, "levels": levels,
+            "stage_times": dict(fa.stage_times), "host_times": dict(fa.host_times),
+            "solve_s": info["solve_s"], "html_bytes": html_bytes, "reaction_diff_n": dR}
+
+
+def write_reports(torch, out_dir, solved):
+    """Phase 17(b): .md and .docx reports of analyses phases 5, 15 and 16
+    solved (no new solve: a report launches at most the stress recovery
+    of an analysis that has none yet); images are phase 17(d)'s. Each
+    report's file opens and holds its product's result section."""
+    from femx_torch import report
+
+    writers = {
+        "solid_default": (lambda p: report.solid_report(solved["solid_default"], p, image=False),
+                          "Reaction Force Results"),
+        "building_frame": (lambda p: report.beam_report(*solved["building_frame"], p,
+                                                        plots=False),
+                           "3. Modal Analysis Results"),
+        "shaft_stepped": (lambda p: report.shaft_report(solved["shaft_stepped"], p, image=False),
+                          "Modal Results"),
+        "plane_flagship": (lambda p: report.plane_report(solved["plane_flagship"], p,
+                                                         image=False),
+                           "Stress Results (von Mises, nodal recovery)"),
+        "plane_dense": (lambda p: report.plane_report(solved["plane_dense"], p, image=False),
+                        "Modal Analysis Results"),
+        "pipe_thermal": (lambda p: report.pipe_report(solved["pipe_thermal"], p, image=False),
+                         "Bore (inner)"),
+    }
+    out = {}
+    for label, (write, section) in writers.items():
+        times, launches = {}, {}
+        for ext in ("md", "docx"):
+            path = os.path.join(out_dir, f"{label}.{ext}")
+            launches[ext], times[ext], _ = counted(torch, lambda: write(path))
+            text = open(path).read() if ext == "md" else docx_text(path)
+            check(section in text, f"{label}.{ext} lacks {section!r}")
+        out[label] = {"md_s": times["md"], "docx_s": times["docx"], "launches": launches,
+                      "md_bytes": os.path.getsize(os.path.join(out_dir, f"{label}.md"))}
+        log(f"   {label}: {json.dumps(out[label])}")
+    return out
+
+
+_LAUNCH_RUNNER = r"""
+import json, runpy, sys
+from femx_torch import gather
+from femx_torch.elements import cell_matmul as cm
+code = 0
+try:
+    runpy.run_module("femx_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+counts = {f"structured_cell_matmul/{k}": v for k, v in cm.LAUNCHES.items() if v}
+counts.update((k, v) for k, v in gather.LAUNCHES.items() if v)
+print("LAUNCHES " + json.dumps(counts))
+sys.exit(code)
+"""
+
+
+def cli_subprocesses(torch, R_default, out_dir):
+    """Phase 17(c): `python -m femx_torch` in subprocesses, on the card by
+    default: mesh-box then solid --msh on the README default box (TG +
+    block-Jacobi, f64; run through runpy so the process can print its
+    launch counts: take_rows must have launched; reactions held to phase
+    5's to the printed precision), and shaft, plane (MG route), pipe and
+    section (warping FEM) with --json, started together."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    msh = os.path.join(out_dir, "default_box.msh")
+    fixes = [f"{x},0,{z}" for x, z in CORNERS_DEFAULT]
+    mesh_box = ["mesh-box", "--dims", "0.8", "0.2", "0.8", "--mesh-size", "0.05",
+                "--force", "0,3000,0@0.4,0.2,0.4", *sum((["--fix", f] for f in fixes), []),
+                "-o", msh]
+    solid = ["solid", "--msh", msh, "--E", "2e11", "--nu", "0.3",
+             "--force", "0,3000,0@0.4,0.2,0.4", *sum((["--fix", f + ":xyz"] for f in fixes), [])]
+    jobs = {
+        "shaft": ["shaft", "--segment", "2.0,0.04", "--bearing", "0", "--bearing", "2",
+                  "--E", "2e11", "--nu", "0.3", "--json"],
+        "plane": ["plane", "--plate", "1.0", "0.2", "--mesh-size", "0.0025", "--E", "2e11",
+                  "--nu", "0.3", "--thickness", "0.01", "--force-edge", "right=0,-1000",
+                  "--fix-edge", "left", "--json"],
+        "pipe": ["pipe", "--ri", "0.05", "--ro", "0.08", "--E", "2e11", "--nu", "0.3",
+                 "--Ti", "200", "--To", "50", "--pi", "5e6", "--nr", "32", "--nz", "128",
+                 "--json"],
+        "section": ["section", "--type", "I section", "--params",
+                    "d=0.05,b=0.025,t_w=0.005,t_f=0.005,r=0.001", "--method", "fem"],
+    }
+
+    def start(cmd, runner=False):
+        head = ([sys.executable, "-c", _LAUNCH_RUNNER] if runner
+                else [sys.executable, "-m", "femx_torch"])
+        return time.perf_counter(), subprocess.Popen(head + cmd, cwd=out_dir, env=env,
+                                                     stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)
+
+    def finish(label, job):
+        t0, proc = job
+        out, err = proc.communicate(timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"femx_torch {label} exited {proc.returncode}:\n"
+              f"{out[-3000:]}\n{err[-3000:]}")
+        return secs, out
+
+    running = {k: start(v) for k, v in jobs.items()}
+    out = {}
+    secs, text = finish("mesh-box", start(mesh_box))
+    log(f"   mesh-box {secs:.3f} s: {text.strip()}")
+    secs, text = finish("solid --msh", start(solid, runner=True))
+    counts = json.loads(text.split("LAUNCHES ")[1])
+    R = np.array(re.findall(r"Rx=(\S+), Ry=(\S+), Rz=(\S+) N", text), dtype=float)
+    dR = float(np.abs(R - R_default).max() / np.abs(R_default).max())
+    log(f"   solid --msh {secs:.3f} s, launches {counts}; reactions vs phase 5 rel {dR:.3e}")
+    check(counts.get("take_rows/float64", 0) > 0, "solid --msh launched no take_rows")
+    check(R.shape == (4, 3) and dR <= 1e-4, "solid --msh reactions differ from phase 5's")
+    out["solid_msh"] = {"s": secs, "launches": counts, "reaction_rel": dR}
+    for label in jobs:
+        secs, text = finish(label, running[label])
+        payload = json.loads(text.strip().splitlines()[-1])
+        log(f"   {label} {secs:.3f} s: " + json.dumps(
+            {k: v for k, v in payload.items() if k not in ("radii", "hoop_profile_mpa")})[:600])
+        if label == "shaft":  # the pinned-pinned demo shaft: first critical ~1187.8 RPM
+            ok = abs(payload["critical_speeds_rpm"][0] / 1187.8 - 1) <= 1e-3
+        elif label == "plane":
+            ok = (payload["solve_info"]["method"].startswith("mg_pcg_2d")
+                  and np.abs(payload["equilibrium_residual"]).max() <= 1e-8 * 1000.0)
+        elif label == "pipe":
+            ok = np.isfinite(payload["max_von_mises_mpa"]) and payload["max_von_mises_mpa"] > 0
+        else:
+            ok = payload["J"] > 0 and 0 < payload["kappa_y"] <= 1 and payload["A"] > 0
+        check(ok, f"femx_torch {label}: {payload}")
+        out[label] = {"s": secs}
+    return out
+
+
+def host_plots(torch, out_dir, solved):
+    """Phase 17(d): every product's plot, when matplotlib is installed."""
+    import importlib.util
+
+    if importlib.util.find_spec("matplotlib") is None:
+        log("   matplotlib: absent")
+        return None
+    from femx_torch.viz import save_beam_modal_plot, save_beam_static_plot
+    from femx_torch.viz_sections import plot_extruded_sections
+
+    ba, res = solved["building_frame"]
+    plots = {
+        "solid_default": lambda p: solved["solid_default"].plot(show_window=False, filename=p),
+        "solid_default_vm": lambda p: solved["solid_default"].plot(
+            show_window=False, filename=p, color="von_mises"),
+        "building_static": lambda p: save_beam_static_plot(ba, res, p),
+        "building_mode1": lambda p: save_beam_modal_plot(ba, res, 1, p),
+        "building_sections": lambda p: plot_extruded_sections(ba.mesh, ba.section_data,
+                                                              filename=p),
+        "shaft_mode1": lambda p: solved["shaft_stepped"].plot_mode(1, p),
+        "plane_dense": lambda p: solved["plane_dense"].plot(p),
+        "pipe_thermal": lambda p: solved["pipe_thermal"].plot(p),
+    }
+    out = {}
+    for label, draw in plots.items():
+        path = os.path.join(out_dir, f"{label}.png")
+        _, secs, _ = counted(torch, lambda: draw(path))
+        with open(path, "rb") as f:
+            check(f.read(8) == _PNG, f"{label}: not a PNG")
+        out[label] = secs
+    log(f"   plots (s): {json.dumps(out)}")
+    return out
+
+
+def kernels_per_call(torch, fn, calls=20):
+    """(device kernels, their summed device ms) per call of fn: `calls`
+    calls under one torch.profiler session, after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events) / calls,
+            sum(e.self_device_time_total for e in events) / 1e3 / calls)
+
+
+def conv_apply_rows(torch, part, peaks):
+    """Phase 18(a): at 24x24x96 cells, float32 and float64, the conv-form
+    apply (cuDNN, TF32 off) against the slot apply with the cell kernel:
+    max difference over max value, CUDA-event ms of both in turns (slot,
+    conv, conv, slot; back-to-back applies, so the host's launches bound
+    them), device kernels and their summed device time per apply (20
+    profiled applies), the full 24-channel correlation alone, and its
+    bound."""
+    import torch.nn.functional as F
+
+    from femx_torch.assembly_conv import conv_kernels
+    from femx_torch.assembly_structured import StructuredSolidOperator, conv_routing_active
+
+    out = {}
+    nx, ny, nz = FLAGSHIP
+    ext = (nx + 1, ny + 1, nz + 1)
+    flops = 2.0 * 24 * 24 * 27 * ext[0] * ext[1] * ext[2]
+    for dt, name in ((np.float32, "float32"), (np.float64, "float64")):
+        ops = {form: StructuredSolidOperator.from_lattice(
+            FLAGSHIP, (H, H, H), E, NU, dtype=dt, device=DEVICE, apply_form=form)
+            for form in ("slot", "conv")}
+        check(conv_routing_active(ops["conv"]) and not conv_routing_active(ops["slot"]),
+              "routing at 24x24x96")
+        rng = np.random.default_rng(18)
+        u = torch.as_tensor(rng.standard_normal(ops["slot"].ndof).astype(dt), device=DEVICE)
+        slot, conv = ops["slot"].apply(u), ops["conv"].apply(u)
+        torch.cuda.synchronize()
+        rel = float((conv - slot).abs().max() / slot.abs().max())
+        check(rel <= TOL[name], f"conv vs slot {name}: {rel}")
+        ms = {"slot": [], "conv": []}
+        for form in ("slot", "conv", "conv", "slot"):
+            ms[form].append(cuda_ms(lambda: ops[form].apply(u)))
+        per_apply = {}
+        for form, op in ops.items():
+            scm, _, _ = counted(torch, lambda: op.apply(u))
+            kernels, kernel_ms = kernels_per_call(torch, lambda: op.apply(u))
+            per_apply[form] = {"device_kernels": kernels, "device_kernel_ms": kernel_ms,
+                               "cell_kernel": int(scm.get(f"{SCM}/{name}", 0))}
+        check(per_apply["conv"]["cell_kernel"] == 0 and per_apply["slot"]["cell_kernel"] == 1,
+              f"cell kernel launches per apply {per_apply}")
+        full, _ = conv_kernels(ops["conv"], u.dtype, u.device)
+        U = torch.as_tensor(rng.standard_normal((1, 24) + ext).astype(dt), device=DEVICE)
+        full_ms = cuda_ms(lambda: F.conv3d(U, full, padding=1))
+        peak = peaks[0] if name == "float32" else FP64_VECTOR[part]
+        nbytes = 2 * 24 * ext[0] * ext[1] * ext[2] * np.dtype(dt).itemsize
+        bound_ms = max(flops / (peak * 1e12), nbytes / (peaks[2] * 1e12)) * 1e3
+        out[name] = {"max_diff_over_max": rel,
+                     "slot_ms": statistics.median(ms["slot"]),
+                     "conv_ms": statistics.median(ms["conv"]), "turns_ms": ms,
+                     "full_correlation_ms": full_ms, "correlation_bound_ms": bound_ms,
+                     "correlation_gflop": flops / 1e9, "per_apply": per_apply}
+        log(f"   {name}: {json.dumps(out[name])}")
+    return out
+
+
+def flagship_conv(torch, femx_torch, it6, R_flagship, warm6, warm_runs=3):
+    """Phase 18(b): phase 6's analysis with structured_apply="conv": the fine
+    level (55,296 cells) and the f64 CG operator route conv, the coarser
+    levels keep the cell kernel. Iterations within 1 of phase 6's, corner
+    reactions within 1e-7 relative, launches as counted, and the warm solve
+    time beside phase 6's."""
+    mesh = femx_torch.box_tet10(0.4, 0.4, 1.6, mesh_size=H, force_points=[(0.2, 0.4, 1.6)],
+                                fix_points=CORNERS_FLAGSHIP)
+    force = [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0,
+              "force_x_pstn": 0.2, "force_y_pstn": 0.4, "force_z_pstn": 1.6}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in CORNERS_FLAGSHIP]
+    fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=E, v=NU, dtype=np.float32,
+                                          cg_tol=1e-8, verbose=False, device=DEVICE,
+                                          structured_apply="conv")
+    launches, t_run, _ = counted(torch, fa.run_simulation)
+    info = fa.solve_info
+    it, levels = info["iterations"], len(fa._precond.levels)
+    log(f"   first run_simulation {t_run:.3f} s; solve_info {info}")
+    check(info["structured_apply"] == "conv" and info["converged"], str(info))
+    check(abs(it - it6) <= 1, f"{it} iterations against phase 6's {it6}")
+    # the f64 CG operator and the fine V-cycle level apply by convolution;
+    # the levels below the fine one and above the coarsest launch the kernel
+    want = {k: v for k, v in {f"{SCM}/float32": 5 * (levels - 2) * (it + 1)}.items() if v}
+    log(f"   launch check: expect {want}, got {launches}")
+    check(launches == want, "conv flagship launch count mismatch")
+    R = corner_reactions(fa)
+    rel = rel_diff(R, R_flagship)
+    eq = fa.equilibrium_residual()
+    log(f"   corner reactions rel to phase 6 {rel:.3e}; equilibrium {eq.tolist()}")
+    check(rel <= 1e-7 and np.linalg.norm(eq) <= 1e-6 * 1000.0, "conv flagship reactions")
+    runs = []
+    for _ in range(warm_runs):
+        t, _ = wall_s(fa.run_simulation)
+        runs.append({"run_simulation_s": t, "solve_s": fa.solve_info["solve_s"],
+                     "iterations": fa.solve_info["iterations"]})
+    warm = {"run_simulation_s": statistics.median(r["run_simulation_s"] for r in runs),
+            "solve_s": statistics.median(r["solve_s"] for r in runs), "runs": runs,
+            "slot_run_simulation_s": warm6["run_simulation_s"], "slot_solve_s": warm6["solve_s"]}
+    log(f"   warm (median of {warm_runs}), conv beside phase 6's slot: {json.dumps(warm)}")
+    return {"launches": launches, "iterations": it, "reaction_rel": rel, **warm}
+
+
 def main() -> int:
     global CM, GATHER
     import torch
@@ -1803,6 +2213,7 @@ def main() -> int:
     log("8. unstructured flagship: relabelled box from a .msh file")
     paths["unstructured_flagship"], fa_u, warm_u, msh_path = unstructured_flagship(
         torch, femx_torch, R_flagship)
+    host_dir = None
     try:
         log("9. take_rows against its plain version at the flagship's gathers; timing")
         tg_rows = tg_kernel_rows(torch, fa_u, peaks[2])
@@ -1832,6 +2243,7 @@ def main() -> int:
         paths["analysis_modal"] = extras["launches_modal"]
         paths["compute_stresses"] = extras["launches_stresses"]
         paths["solve_cases"] = extras["launches_cases"]
+        it_flagship = fa_flagship.solve_info["iterations"]
         del fa_flagship
         log(" (c) checkpoint= on the default case: a cut run, then a resumed one")
         ck = checkpoint_case(torch, femx_torch, R_default, fa_default.solve_info["iterations"])
@@ -1883,7 +2295,36 @@ def main() -> int:
         for k, rec in pipes.items():
             paths[f"pipe_{k}"] = rec["launches"]
         log(" (d) take_rows at the Tri6 gather")
-        tri6 = tri6_rows(torch, plane.pop("analysis"), peaks[2])
+        plane_pa = plane.pop("analysis")
+        tri6 = tri6_rows(torch, plane_pa, peaks[2])
+
+        log("17. the host surface: CLI, reports, plots")
+        solved = {"solid_default": fa_default,
+                  "building_frame": frames["lumped"].pop("analysis"),
+                  "shaft_stepped": shafts["stepped"].pop("analysis"),
+                  "plane_flagship": plane_pa, "plane_dense": pdense.pop("analysis"),
+                  "pipe_thermal": pipes["thermal"].pop("analysis")}
+        pipes["pressure"].pop("analysis")
+        shafts["fixture"].pop("analysis")
+        os.makedirs(WORK_DIR, exist_ok=True)
+        host_dir = tempfile.mkdtemp(prefix="host_", dir=WORK_DIR)
+        log(" (a) femx_torch.cli.main: solid --box at phase 6's lattice, --stress --report --html")
+        cli_flag = cli_flagship(torch, femx_torch, R_flagship, host_dir)
+        paths["cli_flagship"] = cli_flag["launches"]
+        log(" (b) reports of the analyses phases 5, 15 and 16 solved")
+        reports = write_reports(torch, host_dir, solved)
+        log(" (c) python -m femx_torch: mesh-box, solid --msh, shaft, plane, pipe, section")
+        subs = cli_subprocesses(torch, R_default, host_dir)
+        log(" (d) plots")
+        plots = host_plots(torch, host_dir, solved)
+        del solved, plane_pa
+
+        log("18. the conv-form structured apply")
+        log(" (a) conv against slot at 24x24x96, float32 and float64")
+        conv_rows = conv_apply_rows(torch, part, peaks)
+        log(" (b) the structured flagship with structured_apply='conv'")
+        conv_flag = flagship_conv(torch, femx_torch, it_flagship, R_flagship, warm)
+        paths["flagship_conv"] = conv_flag["launches"]
 
         def by_path(key):
             return {p: int(c.get(key, 0)) for p, c in paths.items()}
@@ -1952,7 +2393,7 @@ def main() -> int:
             "modal_max_bound": max(modal["modal_bounds"]),
             "modal_refine_s": modal["modal_refine_s"],
             "modal_peak_device_bytes": modal["modal_peak_device_bytes"],
-            "analysis_modal10_s": extras["analysis_modal10_s"],
+            "analysis_modal_s": extras["analysis_modal_s"],
             "compute_stresses_s": extras["compute_stresses_s"],
             "compute_stresses_peak_device_bytes": extras["compute_stresses_peak_device_bytes"],
             "solve_cases_iters": extras["solve_cases_iters"],
@@ -1978,7 +2419,11 @@ def main() -> int:
             **{f"plane_{k}": v for k, v in plane.items() if k != "launches"},
             "plane_dense_modal_s": pdense["modal_s"],
             **{f"pipe_{k}_{f}": v[f] for k, v in pipes.items()
-               for f in ("s", "iterations", "solve_s", "errors")}}))
+               for f in ("s", "iterations", "solve_s", "errors")},
+            **{f"cli_flagship_{k}": v for k, v in cli_flag.items() if k != "launches"},
+            "reports": reports, "cli_subprocess_s": {k: v["s"] for k, v in subs.items()},
+            "plots_s": plots, "conv_apply": conv_rows,
+            **{f"flagship_conv_{k}": v for k, v in conv_flag.items() if k != "launches"}}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"kernels": kernels}))
@@ -1989,6 +2434,8 @@ def main() -> int:
     finally:
         if os.path.exists(msh_path):
             os.remove(msh_path)
+        if host_dir is not None:
+            shutil.rmtree(host_dir, ignore_errors=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -235,10 +235,19 @@ class PipeThermalAnalysis:
         return self.points[row[order], 0], np.asarray(field)[row[order]]
 
     def plot(self, filename: str = "pipe_result.png") -> str:
-        raise NotImplementedError("plots are not ported yet (ROADMAP A16)")
+        """Wall von Mises contour + mid-height radial stress profiles."""
+        from femx_torch.viz import save_pipe_results_plot
+
+        if self.u is None:
+            raise RuntimeError("Run the analysis first.")
+        return save_pipe_results_plot(self, filename)
 
     def generate_report(self, filename: str = "pipe_report.md") -> str:
-        raise NotImplementedError("reports are not ported yet (ROADMAP A16)")
+        from femx_torch.report import pipe_report
+
+        if self.u is None:
+            raise RuntimeError("Run the analysis first.")
+        return pipe_report(self, filename)
 
     def run_simulation(self):
         self.assemble()

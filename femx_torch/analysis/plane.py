@@ -385,10 +385,21 @@ class PlaneAnalysis:
 
     def plot(self, filename: str = "plane_result.png", field: str = "von_mises",
              warp_scale=None) -> str:
-        raise NotImplementedError("plots are not ported yet (ROADMAP A16)")
+        """Deformed contour plot (field: von_mises/disp/sxx/syy/sxy)."""
+        from femx_torch.viz import save_plane_results_plot
+
+        if self.u is None:
+            raise RuntimeError("Run the analysis first.")
+        return save_plane_results_plot(self, filename, field=field, warp_scale=warp_scale)
 
     def generate_report(self, filename: str = "plane_report.md") -> str:
-        raise NotImplementedError("reports are not ported yet (ROADMAP A16)")
+        from femx_torch.report import plane_report
+
+        if self.u is None:
+            raise RuntimeError("Run the analysis first.")
+        if getattr(self, "von_mises", None) is None:
+            self.compute_stresses()
+        return plane_report(self, filename)
 
     def run_simulation(self):
         self.assemble()

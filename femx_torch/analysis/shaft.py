@@ -221,7 +221,13 @@ class ShaftModalAnalysis:
                          if m.family == "lateral"])
 
     def plot_mode(self, mode_num: int = 1, filename: str = "shaft_mode.png") -> str:
-        raise NotImplementedError("plots are not ported yet (ROADMAP A16)")
+        from femx_torch.viz import save_shaft_mode_plot
+
+        return save_shaft_mode_plot(self, mode_num, filename)
 
     def generate_report(self, filename: str = "shaft_report.md") -> str:
-        raise NotImplementedError("reports are not ported yet (ROADMAP A16)")
+        from femx_torch.report import shaft_report
+
+        if not self.modes:
+            raise RuntimeError("Run the analysis first.")
+        return shaft_report(self, filename)

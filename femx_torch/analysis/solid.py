@@ -66,7 +66,8 @@ from femx_torch.assembly import SolidOperator, assemble_dense, dof_map
 from femx_torch.assembly_cluster import SolidOperatorCluster
 from femx_torch.assembly_groupell import SolidOperatorGroupELL
 from femx_torch.assembly_soa import BlockJacobiPrecond, SolidOperatorSoA
-from femx_torch.assembly_structured import StructuredBlockJacobi, StructuredSolidOperator
+from femx_torch.assembly_structured import (StructuredBlockJacobi, StructuredSolidOperator,
+                                            resolve_apply_form, conv_routing_active)
 from femx_torch.assembly_tg import SolidOperatorTG
 from femx_torch.config import (DEFAULT_COMPAT, ReferenceCompat, default_dtype,
                                numpy_dtype, resolve_device, torch_dtype)
@@ -149,10 +150,6 @@ class SolidReactionAnalysis:
                              f"'groupell', got {uop!r}")
         if (devices or 0) > 1:
             raise NotImplementedError("devices=N is not ported yet (ROADMAP A15)")
-        if structured_apply not in (None, "slot"):
-            raise NotImplementedError(
-                f"structured_apply={structured_apply!r} is not ported yet "
-                "(ROADMAP A14)")
         if solver not in ("auto", "mg", "cg", "dense"):
             raise ValueError(f"solver must be 'auto', 'mg', 'cg' or 'dense', got {solver!r}")
         self.device = resolve_device(device)
@@ -167,7 +164,11 @@ class SolidReactionAnalysis:
         self.cg_tol = cg_tol
         self.verbose = verbose
         self.unstructured_operator = uop
-        self.structured_apply = "slot"
+        # the structured apply form, "slot" or "conv" (femx_torch.assembly_conv),
+        # kept on the analysis and handed to the operators it builds; femx
+        # writes it into os.environ and clears jax's caches instead
+        # (femx/analysis/solid.py:259-274)
+        self.structured_apply = resolve_apply_form(structured_apply)
         # checkpoint=PATH: the structured and transpose-gather solves run in
         # `checkpoint_chunk`-iteration CG segments, persisting (x, iterations)
         # to PATH between them; a later analysis on the same PATH resumes
@@ -228,7 +229,7 @@ class SolidReactionAnalysis:
         if self._structured:
             self.operator = StructuredSolidOperator.from_mesh(
                 self.mesh, self.E, self.v, weight=self.weight, dtype=dtype,
-                device=self.device)
+                device=self.device, apply_form=self.structured_apply)
             self.negative_detJ_count = 0
         else:
             if self.solver != "dense" and 3 * self.num_nodes > self.DENSE_DOF_LIMIT:
@@ -344,7 +345,7 @@ class SolidReactionAnalysis:
             # (tests/test_torch_solid.py measures both schemes).
             op64 = StructuredSolidOperator.from_mesh(
                 self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
-                device=dev).with_free_mask(m_int)
+                device=dev, apply_form=self.structured_apply).with_free_mask(m_int)
             method += "_mixed"
         else:
             op64 = op
@@ -355,6 +356,8 @@ class SolidReactionAnalysis:
         u_host = u_int.cpu().numpy()
         r_host = r_int.cpu().numpy()
         self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
+        # the form that ran (the request is gated by size and layer weights)
+        self.solve_info["structured_apply"] = "conv" if conv_routing_active(op) else "slot"
         self.u = op.to_global(u_host)
         self._log("   - System solved.")
         self.reaction_forces = op.to_global(r_host)
@@ -392,6 +395,8 @@ class SolidReactionAnalysis:
             "converged": bool(res.converged),
             "precond_setup_s": round(t_pre, 3),
             "solve_s": round(time.perf_counter() - t0 - t_pre, 3),
+            # requested form: on the unstructured routes it reaches only the
+            # lattice preconditioner's structured levels, each gated
             "structured_apply": self.structured_apply,
         }
         if resumed is not None:
@@ -426,7 +431,7 @@ class SolidReactionAnalysis:
                     self.points, self.tetra10_conn, self.E, self.v, mask_g,
                     dtype=numpy_dtype(op.dtype).type, node_perm=op.new_of_old,
                     bj_fn=bj_fn, bj_data=bj_data, n_caller=getattr(op, "n_pad", None),
-                    device=self.device)
+                    device=self.device, structured_apply=self.structured_apply)
                 prefix = f"{tag}_lattice_mg"
             except ValueError as e:
                 self._log(f"   - Lattice preconditioner unavailable ({e}); "
@@ -700,13 +705,37 @@ class SolidReactionAnalysis:
 
     def run_simulation(self, report: bool = False, report_path: str = "FEM_Report.md"):
         """Full pipeline (reference: ReactionSolver.py:226-232)."""
-        if report:
-            raise NotImplementedError("reports are not ported yet (ROADMAP A16)")
         self.assemble_stiffness_matrix()
         self.apply_boundary_conditions()
         self.solve()
         self.print_reactions()
+        if report:
+            self.generate_report(report_path)
         return self
+
+    def generate_report(self, filename: str = "FEM_Report.md") -> None:
+        """Markdown or .docx report (femx_torch.report.solid_report)."""
+        self._log(f"\n6. Generating analysis report to {filename}...")
+        from femx_torch.report import solid_report
+
+        solid_report(self, filename)
+        self._log("   - Report generation complete.")
+
+    def plot(self, factor: float = 1.0, show_window: bool = True,
+             filename: str = "fem_result.png", color: str = "disp"):
+        """Deformed-shape view (femx_torch.viz.plot_solid_results)."""
+        from femx_torch.viz import plot_solid_results
+
+        return plot_solid_results(self, factor=factor, show_window=show_window,
+                                  filename=filename, color=color)
+
+    def export_html(self, filename: str = "fem_result.html", factor: float = 1.0) -> str:
+        """Standalone interactive WebGL viewer (femx_torch.viz_html), the
+        headless answer to the reference's PyVista window
+        (ReactionSolver.py:234-294)."""
+        from femx_torch.viz_html import export_solid_html
+
+        return export_solid_html(self, filename, factor=factor)
 
 
 # Reference-compatible alias (ReactionSolver.py:16).

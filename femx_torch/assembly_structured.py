@@ -17,12 +17,23 @@ host. The 81x81 cell matrix is assembled once on the host in float64 from the
 6 Tetra10 elements of a single cell. Setup-stage data (cell matrix, masks,
 block-Jacobi blocks) is host numpy; only what the apply uses per iteration
 lives on the device.
+
+`apply_form="conv"` (or FEMX_STRUCTURED_APPLY=conv when the operator is
+built without one) routes the apply of an unweighted operator with at least
+FEMX_CONV_MIN_CELLS cells (default 16,384) through the conv-form stencil,
+femx_torch.assembly_conv, as femx's apply does (femx/assembly_structured.py:
+365-383). femx writes the form into the process environment and keeps
+float64 in slot form on the TPU, where float64 convolutions do not lower;
+here the form is a field of the operator, passed down to the operators built
+from it, and float64 routes like float32 on every device (femx's CPU
+semantics).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,7 +45,18 @@ from femx_torch.elements.cell_matmul import (
 from femx_torch.elements.tet10 import (
     DN_NATURAL, GAUSS_WEIGHT_CORRECT, MASS_HAT, _SEL, material_matrix)
 
-__all__ = ["StructuredSolidOperator", "StructuredBlockJacobi", "constrained_block_inverse"]
+__all__ = ["StructuredSolidOperator", "StructuredBlockJacobi", "constrained_block_inverse",
+           "conv_routing_active"]
+
+APPLY_FORMS = ("slot", "conv")
+
+
+def resolve_apply_form(form: Optional[str]) -> str:
+    """The apply form asked for, or FEMX_STRUCTURED_APPLY's (default slot)."""
+    form = form or os.environ.get("FEMX_STRUCTURED_APPLY", "slot")
+    if form not in APPLY_FORMS:
+        raise ValueError(f"structured_apply must be 'slot' or 'conv', got {form!r}")
+    return form
 
 
 def _cell_stiffness(spacing, E_mod, nu, weight, dtype) -> np.ndarray:
@@ -118,6 +140,9 @@ class StructuredSolidOperator:
     cell (i, j, k) contributes x_weight[i] * y_weight[j] * z_weight[k] *
     Kcell. The ghost-padded coarse levels of StructuredMultigrid use them to
     give fully-ghost cell layers zero stiffness. None means all ones.
+
+    apply_form: "slot" or "conv" (see the module docstring); operators built
+    from this one (coarsened, cast, masked) keep it.
     """
 
     Kcell: torch.Tensor  # (81, 81)
@@ -131,13 +156,16 @@ class StructuredSolidOperator:
     x_weight: Optional[torch.Tensor] = None
     y_weight: Optional[torch.Tensor] = None
     z_weight: Optional[torch.Tensor] = None
+    apply_form: str = "slot"
 
     # -- construction -------------------------------------------------------
     @classmethod
     def from_host(cls, Kcell, n_cells, weight, spacing=None, free_mask=None,
-                  x_weight=None, y_weight=None, z_weight=None, device=None):
+                  x_weight=None, y_weight=None, z_weight=None, device=None,
+                  apply_form=None):
         """Build from host arrays: Kcell (81, 81) sets the dtype; the other
-        arrays are cast to it. The device tensors go to `device`."""
+        arrays are cast to it. The device tensors go to `device`. apply_form
+        None reads FEMX_STRUCTURED_APPLY (default "slot")."""
         dev = resolve_device(device)
         Kc = np.array(Kcell, order="C")  # owned copy: the tensor shares it on the CPU
         dt = torch_dtype(Kc.dtype)
@@ -155,26 +183,30 @@ class StructuredSolidOperator:
             x_weight=_device_array(x_weight, dt, dev),
             y_weight=_device_array(y_weight, dt, dev),
             z_weight=_device_array(z_weight, dt, dev),
+            apply_form=resolve_apply_form(apply_form),
         )
 
     @classmethod
-    def from_mesh(cls, mesh, E_mod, nu, weight=None, dtype=np.float32, device=None):
+    def from_mesh(cls, mesh, E_mod, nu, weight=None, dtype=np.float32, device=None,
+                  apply_form=None):
         info = mesh.structured
         if info is None:
             raise ValueError("Mesh has no structured-lattice metadata")
         return cls.from_lattice(info.n_cells, info.spacing, E_mod, nu,
-                                weight=weight, dtype=dtype, device=device)
+                                weight=weight, dtype=dtype, device=device,
+                                apply_form=apply_form)
 
     @classmethod
     def from_lattice(cls, n_cells, spacing, E_mod, nu, weight=None,
-                     dtype=np.float32, device=None):
+                     dtype=np.float32, device=None, apply_form=None):
         """Build directly from (n_cells, spacing): the operator is fully
         determined by the cell stiffness and the lattice extents."""
         if weight is None:
             weight = GAUSS_WEIGHT_CORRECT
         sp = tuple(float(s) for s in spacing)
         Kc = _cell_stiffness(sp, E_mod, nu, weight, numpy_dtype(dtype))
-        return cls.from_host(Kc, n_cells, weight, spacing=sp, device=device)
+        return cls.from_host(Kc, n_cells, weight, spacing=sp, device=device,
+                             apply_form=apply_form)
 
     def coarsened(self) -> "StructuredSolidOperator":
         """The operator on the lattice coarsened 2x along every axis. The
@@ -187,7 +219,7 @@ class StructuredSolidOperator:
             2.0 * self.Kcell_host, n, self.weight,
             spacing=None if self.spacing is None
             else tuple(2.0 * s for s in self.spacing),
-            device=self.device)
+            device=self.device, apply_form=self.apply_form)
 
     # -- layout bookkeeping --------------------------------------------------
     @property
@@ -248,6 +280,8 @@ class StructuredSolidOperator:
         out = dataclasses.replace(self, **changes)
         if "_perm" in self.__dict__:  # same lattice: share the cached permutation
             out._perm = self._perm
+        if "Kcell" not in changes and "_conv_kernels" in self.__dict__:
+            out._conv_kernels = self._conv_kernels  # same cell matrix
         return out
 
     def astype(self, dtype) -> "StructuredSolidOperator":
@@ -282,7 +316,12 @@ class StructuredSolidOperator:
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """K @ u (internal layout): gather + cell matmul (the kernel on the
-        card), the layer weights, then the overlap-add."""
+        card), the layer weights, then the overlap-add; or the conv-form
+        stencil when conv_routing_active(self)."""
+        if conv_routing_active(self):
+            from femx_torch.assembly_conv import apply_conv
+
+            return apply_conv(self, u)
         nx, ny, nz = self.n_cells
         fe = structured_cell_matmul(u, self.Kcell, self.n_cells).view(27, 3, nx, ny, nz)
         # layer weights act on the cell results, after the matmul
@@ -410,6 +449,21 @@ class StructuredSolidOperator:
             # row i: B[i,0] r0 + B[i,1] r1 + B[i,2] r2, the reference's order
             outs.append((B[:, 0] * rp[0] + B[:, 1] * rp[1] + B[:, 2] * rp[2]).reshape(-1))
         return torch.cat(outs)
+
+
+def conv_routing_active(op: StructuredSolidOperator) -> bool:
+    """Whether op.apply runs the conv-form stencil: the operator's form is
+    "conv", it has no layer weights (a weighted stencil is position-
+    dependent) and at least FEMX_CONV_MIN_CELLS cells (default 16,384: the
+    26 boundary corrections cost ~80 small launches per apply, so coarse
+    levels keep slot form). femx's gate (femx/assembly_structured.py:
+    631-650) less its float64-on-TPU clause."""
+    if op.apply_form != "conv":
+        return False
+    if op.x_weight is not None or op.y_weight is not None or op.z_weight is not None:
+        return False
+    nx, ny, nz = op.n_cells
+    return nx * ny * nz >= int(os.environ.get("FEMX_CONV_MIN_CELLS", "16384"))
 
 
 class StructuredBlockJacobi:

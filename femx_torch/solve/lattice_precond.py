@@ -341,13 +341,16 @@ class LatticePreconditioner:
       n_cycles: lattice V-cycles per coarse correction.
       n_caller: node count of a caller layout padded beyond the mesh.
       device: where the lattice hierarchy and transfers live (None = CUDA).
+      structured_apply: the apply form of the lattice operators ("slot" or
+        "conv"; None reads FEMX_STRUCTURED_APPLY).
     """
 
     def __init__(self, points, conn, E: float, nu: float, free_mask_global,
                  block_jacobi_apply=None, cells_per_axis=None, dtype=np.float64,
                  coarse_weight: float = 1.0, node_perm=None, bj_fn=None, bj_data=None,
                  mode: str = "add", op=None, omega: Optional[float] = None,
-                 n_cycles: int = 2, n_caller: Optional[int] = None, device=None):
+                 n_cycles: int = 2, n_caller: Optional[int] = None, device=None,
+                 structured_apply: Optional[str] = None):
         dev = resolve_device(device)
         pts = np.asarray(points, dtype=np.float64)
         conn = np.asarray(conn)
@@ -377,7 +380,7 @@ class LatticePreconditioner:
         spacing = tuple(span[a] / n_cells[a] for a in range(3))
 
         lop = StructuredSolidOperator.from_lattice(n_cells, spacing, E, nu, dtype=dtype,
-                                                   device=dev)
+                                                   device=dev, apply_form=structured_apply)
         gs = lop.grid_shape
         half_h = np.asarray(spacing) / 2.0
         mu = np.asarray(free_mask_global).reshape(self.n_nodes, 3)

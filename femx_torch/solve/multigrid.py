@@ -289,6 +289,9 @@ class StructuredMultigrid:
         # power iterations below.
         prev_op = None
         binv_hosts = []
+        # the fine operator's apply form reaches every level (each level's
+        # own conv gate decides)
+        form = None if fine_op is None else fine_op.apply_form
         for i, (ni, spi, mgrid, wts) in enumerate(specs):
             if i == 0 and fine_op is not None:
                 if tuple(fine_op.n_cells) != ni:
@@ -300,11 +303,13 @@ class StructuredMultigrid:
                 op = prev_op.coarsened()
             else:
                 op = StructuredSolidOperator.from_lattice(
-                    ni, spi, E, nu, weight=weight, dtype=dtype, device=dev)
+                    ni, spi, E, nu, weight=weight, dtype=dtype, device=dev,
+                    apply_form=form)
             if any(w is not None for w in wts):
                 op = StructuredSolidOperator.from_host(
                     op.Kcell_host, op.n_cells, op.weight, spacing=op.spacing,
-                    x_weight=wts[0], y_weight=wts[1], z_weight=wts[2], device=dev)
+                    x_weight=wts[0], y_weight=wts[1], z_weight=wts[2], device=dev,
+                    apply_form=op.apply_form)
             prev_op = op
             op = op.with_free_mask(op.to_internal(mgrid.reshape(-1)))
             bh = [b.astype(dtype) for b in op.block_jacobi_tensors()]
@@ -470,7 +475,8 @@ def _power_lambda_max(op: StructuredSolidOperator, binv, iters: int = 15) -> flo
     hop = StructuredSolidOperator.from_host(
         op.Kcell_host, op.n_cells, op.weight, spacing=op.spacing,
         free_mask=op.free_mask_host, x_weight=_host(op.x_weight),
-        y_weight=_host(op.y_weight), z_weight=_host(op.z_weight), device="cpu")
+        y_weight=_host(op.y_weight), z_weight=_host(op.z_weight), device="cpu",
+        apply_form=op.apply_form)
     hbinv = [torch.as_tensor(np.asarray(b)) for b in binv]
     v = torch.as_tensor(rng.standard_normal(hop.ndof).astype(dt))
     lam = None

@@ -11,6 +11,8 @@ without JAX; tests/conftest.py imports jax, so there run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -628,3 +630,61 @@ def test_beam_shaft_and_pipe_match_cpu(cuda):
     assert got.solve_info["method"] == "mg_pcg_2d"
     assert np.abs(got.stress_nodes - want.stress_nodes).max() <= 1e-9 * np.abs(
         want.stress_nodes).max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+@pytest.mark.parametrize("n", [(8, 8, 16), (5, 3, 7), (1, 1, 1)])
+def test_conv_apply_matches_slot_on_the_card(cuda, monkeypatch, dtype, tol, n):
+    """The conv-form apply (cuDNN, TF32 off) against the slot apply with the
+    cell kernel, and against the conv apply on the CPU; the conv form
+    launches no cell kernel."""
+    monkeypatch.setenv("FEMX_CONV_MIN_CELLS", "0")
+    ops = {form: StructuredSolidOperator.from_lattice(
+        n, (0.05, 0.07, 0.06), 2e11, 0.3, dtype=dtype, device=cuda, apply_form=form)
+        for form in ("slot", "conv")}
+    cpu = StructuredSolidOperator.from_lattice(n, (0.05, 0.07, 0.06), 2e11, 0.3, dtype=dtype,
+                                               device="cpu", apply_form="conv")
+    u_np = np.random.default_rng(3).standard_normal(cpu.ndof).astype(dtype)
+    u = torch.as_tensor(u_np, device=cuda)
+    slot = ops["slot"].apply(u)
+    before = dict(cm.LAUNCHES)
+    conv = ops["conv"].apply(u)
+    torch.cuda.synchronize()
+    assert dict(cm.LAUNCHES) == before
+    scale = slot.abs().max().item()
+    assert (conv - slot).abs().max().item() <= tol * scale
+    ref = cpu.apply(torch.as_tensor(u_np)).numpy()
+    assert np.abs(conv.cpu().numpy() - ref).max() <= tol * scale
+
+
+def test_cli_runs_on_the_card_by_default(cuda, tmp_path, capsys):
+    """The CLI's default platform is the card: the solid box (cell kernel
+    launched) and the shaft's --json agree with --platform cpu."""
+    from femx_torch import cli
+
+    args = ["solid", "--box", "0.4", "0.2", "0.4", "--mesh-size", "0.1", "--E", "2e11",
+            "--nu", "0.3", "--force", "400,3000,-700@0.3,0.2,0.1", "--fix", "0,0,0:xyz",
+            "--fix", "0,0,0.4:xyz", "--fix", "0.4,0,0:xyz", "--fix", "0.4,0,0.4:xyz",
+            "--stress", "--report", str(tmp_path / "r.md")]
+    n0 = cm.LAUNCHES["float64"]
+    assert cli.main(args) == 0
+    card = capsys.readouterr().out
+    assert cm.LAUNCHES["float64"] > n0
+    assert cli.main(["--platform", "cpu"] + args) == 0
+    host = capsys.readouterr().out
+
+    def reactions(out):
+        return np.array(re.findall(r"Rx=(\S+), Ry=(\S+), Rz=(\S+) N", out), dtype=float)
+
+    assert reactions(card).shape == (4, 3)
+    assert np.abs(reactions(card) - reactions(host)).max() <= 1e-9 * 3000.0
+    shaft = ["shaft", "--segment", "2.0,0.04", "--bearing", "0", "--bearing", "2",
+             "--E", "2e11", "--nu", "0.3", "--json"]
+    import json
+
+    assert cli.main(shaft) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cli.main(["--platform", "cpu"] + shaft) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    np.testing.assert_allclose(got["critical_speeds_rpm"], want["critical_speeds_rpm"],
+                               rtol=1e-9)

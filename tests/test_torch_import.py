@@ -190,3 +190,17 @@ def test_new_entry_points_raise_without_cuda(name):
         pytest.skip("CUDA is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points()[name]()
+
+
+def test_host_surface_imports_no_matplotlib():
+    """The package, the CLI, the reports, the viewers and the UI import
+    without matplotlib; only a figure loads it (femx_torch.viz._pyplot)."""
+    code = """
+import sys
+import femx_torch, femx_torch.cli, femx_torch.report, femx_torch.viz, femx_torch.viz_html
+import femx_torch.viz_sections, femx_torch.ui, femx_torch.ui.qt, femx_torch.assembly_conv
+assert not any(m == "matplotlib" or m.startswith("matplotlib.") for m in sys.modules)
+print("OK")
+"""
+    p = _run(code)
+    assert p.returncode == 0 and p.stdout.startswith("OK"), p.stdout + p.stderr

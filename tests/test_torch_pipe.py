@@ -65,6 +65,7 @@ def test_log_profile_and_inputs():
     with pytest.raises(ValueError, match="rho"):
         PtPipe(0.05, 0.08, 0.1, 2e11, 0.3, 1e-5, spin_rpm=100.0, device="cpu")
     pa = PtPipe(0.05, 0.08, 0.1, 2e11, 0.3, 1e-5, n_r=2, n_z=2, verbose=False, device="cpu")
+    # the outputs are ported; before the analysis has run they refuse, as femx's do
     for call in (pa.plot, pa.generate_report):
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(RuntimeError, match="Run the analysis first"):
             call()

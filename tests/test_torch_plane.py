@@ -299,7 +299,7 @@ def test_modal_thermal_and_point_loads_match_femx():
     assert np.abs(pa[0].equilibrium_residual()).max() < 1e-8 * 100.0
 
 
-def test_tri3_promotion_inputs_and_unported_outputs():
+def test_tri3_promotion_inputs_and_unported_outputs(tmp_path):
     from femx_torch.mesh.core import Mesh
 
     pts = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], dtype=float)
@@ -316,9 +316,11 @@ def test_tri3_promotion_inputs_and_unported_outputs():
         PtPlane(mesh, [], [], E=1e9, v=0.3, mode="bogus", verbose=False, device="cpu")
     with pytest.raises(ValueError, match="alpha"):
         PtPlane(mesh, [], [], E=1e9, v=0.3, temperature=5.0, verbose=False, device="cpu")
-    for call in (pa.plot, pa.generate_report):
-        with pytest.raises(NotImplementedError, match="A16"):
-            call()
+    # the outputs are ported: the report and the plot are written
+    report = open(pa.generate_report(str(tmp_path / "plate.md"))).read()
+    assert "## Equilibrium Check" in report and "- **Total Nodes:** 9" in report
+    assert pa.plot(str(tmp_path / "plate.png")) == str(tmp_path / "plate.png")
+    assert (tmp_path / "plate.png").stat().st_size > 0
     pa.MODAL_DOF_LIMIT = 10
     with pytest.raises(ValueError, match="dense 2D modal"):
         pa.modal(2)

@@ -217,8 +217,17 @@ def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schem
 def test_unported_options_raise(kw, item):
     """The options still to port raise naming their ROADMAP item. A11
     (group-ELL and cluster) is ported: its cases check that the option is
-    taken and builds its operator on an unstructured mesh."""
+    taken and builds its operator on an unstructured mesh. A14 (the conv
+    apply) is ported: its case checks that the structured operator takes the
+    form."""
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
+    if item == "A14":
+        fa = femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                              device="cpu", **kw)
+        assert fa.structured_apply == "conv"
+        fa.assemble_stiffness_matrix()
+        assert fa.operator.apply_form == "conv"
+        return
     if item != "A11":
         with pytest.raises(NotImplementedError, match=item):
             femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
@@ -239,9 +248,9 @@ def test_unported_options_raise(kw, item):
 
 
 def test_unported_inputs_raise(tmp_path):
-    """Mesh files, unstructured meshes and the group-ELL operator are
-    ported; a bad operator or solver name, a mesh without tets and reports
-    are not."""
+    """Mesh files, unstructured meshes, the group-ELL operator and reports
+    are ported; a bad operator or solver name and a mesh without tets are
+    not."""
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
     fa = femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
                                           device="cpu", unstructured_operator="groupell")
@@ -263,5 +272,8 @@ def test_unported_inputs_raise(tmp_path):
     fa = femx_torch.SolidReactionAnalysis(str(path), [], [], E=E, v=NU, verbose=False,
                                           device="cpu")
     assert fa.mesh.structured is None and fa.num_nodes == off.num_nodes
-    with pytest.raises(NotImplementedError, match="A16"):
-        fa.run_simulation(report=True)
+    # reports are ported (A16): run_simulation(report=True) writes one
+    out = tmp_path / "off_report.md"
+    fa.run_simulation(report=True, report_path=str(out))
+    text = out.read_text()
+    assert "## Reaction Force Results" in text and "| **Total Reaction** |" in text
