@@ -59,8 +59,10 @@ Phases (any failure ends the run with a nonzero exit code):
                 pcg_refined to a true residual of 1e-9, against BENCH_r05's
                 parity numbers (22 +- 4 inner solves, f1-f3 within 1e-2,
                 refined f1 within 1e-5, bounds); (b) modal(n_modes=6),
-                compute_stresses (rows held to the CPU's) and solve_cases
-                (3 cases) on phase 6's analysis; (c) phase 5's case with
+                compute_stresses and solve_cases (3 cases) on phase 6's
+                analysis, the stresses run twice on the card and held to
+                the CPU entry by entry within their rounding bound; (c)
+                phase 5's case with
                 checkpoint= (chunks of 100) cut at 300 iterations, then
                 resumed by a second analysis; (d) modal(n_modes=3,
                 refine=True) on phase 11's mesh-file default (take_rows f64)
@@ -125,7 +127,27 @@ Phases (any failure ends the run with a nonzero exit code):
                 within 1 of phase 6's, corner reactions within 1e-7, launches
                 as counted (the coarse levels only), warm solve beside phase
                 6's.
-Phases 5-8, 10-18 each set the kernel launch counts to 0 just before
+ 19. distributed — femx_torch.parallel with N ranks (processes) sharing
+                the card, gloo on CUDA tensors: (a) every collective against
+                numpy on 4 and 2 ranks, and whether gloo takes
+                reduce_scatter_tensor; (b) the halo apply of 24x24x96 on 4
+                ranks against the single-device apply, float32 and float64,
+                the cell kernel launched on every rank; (c) phase 6's
+                flagship with devices=4 (1,390,179 DOF): solve_info
+                ["devices"] 4, iterations within 2 of phase 6's, phase 6's
+                launch counts on every rank, corner reactions within 1e-6 of
+                phase 6's, equilibrium, wall and collectives per iteration;
+                (d) the same with devices=5 (nz 96 ghost-padded to 100); (e)
+                phase 8's file with devices=4 (sharded TG + distributed
+                lattice MG: take_rows and the cell kernel on every rank),
+                reactions held to phase 6's; (f) devices=2 on the 8x8x32 box:
+                u, solve_cases and modal(3, refine=True) against the
+                single-device run; (g) `python -m femx_torch solid --devices
+                2` on that box, its printed reactions against (f)'s run.
+13(b)'s stress check holds every entry's card-against-CPU difference to
+STRESS_ROUNDING_STEPS eps times the sum of its terms' magnitudes (the two
+runs sum in other orders; the card alone is checked run to run).
+Phases 5-8, 10-19 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
 count its iteration counts imply. The .msh file of phase 8 (read again
 in 14(b)) is written under build/chip_smoke/ and deleted at the end, as
@@ -544,7 +566,7 @@ def bench_flow(torch, bench):
     return out, sb
 
 
-def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=3):
+def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=1):
     """Phase 8: the flagship box, relabelled and read back from a .msh file,
     through the transpose-gather + lattice-MG route; returns the launch
     counts, the analysis, what the end-to-end line reports and the file's
@@ -991,6 +1013,40 @@ def bench_modal(torch, bench, sb):
 ANALYSIS_MODES = 6
 
 
+# compute_stresses against the CPU (13(b)): each run rounds an entry along
+# its longest chain at most ~64 times (the 10-term Jacobian and gradient
+# sums, the cofactor inverse, the 6-term stress product, the 4-point mean,
+# up to 24 element terms at a node, the division by the count), each time by
+# at most eps of the magnitudes summed there; two runs differ by at most
+# twice that.
+STRESS_ROUNDING_STEPS = 128
+
+
+def stress_rounding_scale(torch, points, conn, u, C, chunk=65536):
+    """(N, 6) float64, host: per nodal stress entry the sum of its terms'
+    magnitudes through nodal_stresses' chain, |C| |S| (|dN| |u|) averaged
+    per element and over the node's elements (on the CPU)."""
+    from femx_torch.elements import tet10 as tet10_el
+
+    f64 = torch.float64
+    pts = torch.as_tensor(np.asarray(points), dtype=f64)
+    conn_t = torch.as_tensor(np.asarray(conn), dtype=torch.int64)
+    u3 = torch.as_tensor(np.asarray(u), dtype=f64).reshape(-1, 3).abs()
+    Ca = torch.as_tensor(np.abs(np.asarray(C)), dtype=f64)
+    sel = torch.as_tensor(np.abs(tet10_el._SEL), dtype=f64)
+    out = torch.zeros((pts.shape[0], 6), dtype=f64)
+    for e0 in range(0, conn_t.shape[0], chunk):
+        c = conn_t[e0:e0 + chunk]
+        dN, _, _ = tet10_el.jacobians(pts[c])
+        grad = torch.einsum("egkn,enc->egkc", dN.abs(), u3[c])
+        stress = torch.einsum("ab,egb->ega", Ca, torch.einsum("ack,egkc->ega", sel, grad))
+        es = stress.mean(dim=1)
+        for k in range(10):
+            out.index_add_(0, c[:, k], es)
+    counts = torch.bincount(conn_t.reshape(-1), minlength=pts.shape[0]).to(f64)
+    return (out / counts.clamp(min=1.0)[:, None]).numpy()
+
+
 def analysis_extras(torch, femx_torch, fa):
     """Phase 13(b): modal(n_modes=6), compute_stresses and solve_cases on
     phase 6's corner-fixed f32 flagship analysis."""
@@ -1027,12 +1083,31 @@ def analysis_extras(torch, femx_torch, fa):
         fa.points, fa.tetra10_conn, fa.u, fa.C, device="cpu"))
     rows = np.random.default_rng(0).choice(fa.num_nodes, 1000, replace=False)
     rel = max(rel_diff(nodal[rows], nodal_c[rows]), rel_diff(vm[rows], vm_c[rows]))
+    again = nodal_stresses(fa.points, fa.tetra10_conn, fa.u, fa.C, device=DEVICE)
+    same = bool(np.array_equal(again[0], nodal) and np.array_equal(again[1], vm))
+    # every entry against the rounding bound of its own computation (the
+    # card and the CPU sum in other orders, so their difference is bounded
+    # by the sum of the terms' magnitudes, not by the result's)
+    scale = stress_rounding_scale(torch, fa.points, fa.tetra10_conn, fa.u, fa.C)
+    eps = np.finfo(np.float64).eps
+    ratio = np.abs(nodal - nodal_c) / (eps * np.maximum(scale, 1e-300))
+    dvm_lim = (np.sqrt(3.0) * STRESS_ROUNDING_STEPS * eps * np.linalg.norm(scale, axis=1)
+               + 16 * eps * np.abs(vm_c))
+    vm_ratio = float((np.abs(vm - vm_c) / np.maximum(dvm_lim, 1e-300)).max())
+    worst = np.unravel_index(np.argmax(ratio), ratio.shape)
     log(f"   compute_stresses: {t_st:.6f} s on the card ({t_cpu:.3f} s on the CPU), peak "
-        f"{peak / 2 ** 20:.1f} MiB, max von Mises {vm.max():.6e} Pa; 1,000 sampled rows "
-        f"against the CPU: rel {rel:.3e}")
-    check(rel <= 1e-12, "compute_stresses differs from the CPU run")
+        f"{peak / 2 ** 20:.1f} MiB, max von Mises {vm.max():.6e} Pa; card run twice "
+        f"bitwise equal: {same}; against the CPU: 1,000 sampled rows rel {rel:.3e} (of "
+        f"their largest entry); every entry's difference / (eps x the sum of its terms' "
+        f"magnitudes): max {ratio.max():.3f} (limit {STRESS_ROUNDING_STEPS}) at node "
+        f"{worst[0]} component {worst[1]} (difference "
+        f"{abs(nodal - nodal_c)[worst]:.3e}, value {nodal_c[worst]:.3e}, scale "
+        f"{scale[worst]:.3e}); von Mises against its bound: {vm_ratio:.3f} (limit 1)")
+    check(ratio.max() <= STRESS_ROUNDING_STEPS and vm_ratio <= 1.0,
+          "compute_stresses differs from the CPU run beyond its rounding bound")
     out.update(compute_stresses_s=t_st, compute_stresses_peak_device_bytes=peak,
-               compute_stresses_cpu_rel=rel, launches_stresses=launches)
+               compute_stresses_cpu_rel=rel, compute_stresses_rounding_ratio=float(ratio.max()),
+               compute_stresses_card_repeatable=same, launches_stresses=launches)
 
     f0 = fa.force_data
     f1 = [{"force_x": 700.0, "force_y": 0.0, "force_z": 300.0, "force_x_pstn": 0.4,
@@ -2163,6 +2238,326 @@ def flagship_conv(torch, femx_torch, it6, R_flagship, warm6, warm_runs=3):
     return {"launches": launches, "iterations": it, "reaction_rel": rel, **warm}
 
 
+# -- phase 19: the distributed paths (femx_torch.parallel) --------------------
+# N ranks on the one card (gloo on CUDA tensors: NCCL refuses two ranks on
+# one GPU), so every time here is the cost of decomposing on one card, not a
+# scaling. Each rank zeroes its launch counts before each path and reads
+# them after (counts are per process).
+DIST_RANKS = 4  # (a)-(c), (e)
+PAD_RANKS = 5  # (d): 96 -> 100 cells
+SMALL_CELLS = (8, 8, 32)  # (f), (g): the flagship box at mesh_size 0.05
+SMALL_H = 0.05
+DIST_TIMEOUT = 600
+
+
+def flagship_problem(femx_torch, h=H):
+    """Phase 6's corner-fixed box with the tip load, at cell size h."""
+    mesh = femx_torch.box_tet10(0.4, 0.4, 1.6, mesh_size=h, force_points=[(0.2, 0.4, 1.6)],
+                                fix_points=CORNERS_FLAGSHIP)
+    force = [{"force_x": 0.0, "force_y": -1000.0, "force_z": 0.0,
+              "force_x_pstn": 0.2, "force_y_pstn": 0.4, "force_z_pstn": 1.6}]
+    fix = [{"pos_x": x, "pos_y": y, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x, y, z in CORNERS_FLAGSHIP]
+    return mesh, force, fix
+
+
+class _CollectiveCount:
+    """Counts the torch.distributed collectives a rank calls inside the
+    block (all_reduce, all_gather, reduce_scatter_tensor)."""
+
+    NAMES = ("all_reduce", "all_gather", "reduce_scatter_tensor")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.saved, self.counts = dist, {}, dict.fromkeys(self.NAMES, 0)
+        for n in self.NAMES:
+            fn = getattr(dist, n)
+            self.saved[n] = fn
+
+            def wrapped(*a, _fn=fn, _n=n, **k):
+                self.counts[_n] += 1
+                return _fn(*a, **k)
+
+            setattr(dist, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.dist, n, fn)
+
+
+def _rank_path(torch, fn):
+    """In a rank: (counts, seconds, fn()) with the counts zeroed just
+    before and read just after."""
+    from femx_torch import gather
+    from femx_torch.elements import cell_matmul
+
+    torch.cuda.synchronize()
+    cell_matmul.LAUNCHES.clear()
+    gather.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {f"{SCM}/{k}": v for k, v in cell_matmul.LAUNCHES.items() if v}
+    counts.update((k, v) for k, v in gather.LAUNCHES.items() if v)
+    return counts, time.perf_counter() - t0, out
+
+
+def _analysis_path(torch, mesh, force, fix, kwargs, **extra):
+    """One SolidReactionAnalysis(devices=N) path in a rank: its launches,
+    wall, collectives and (rank 0 only) the arrays."""
+    from femx_torch.parallel import comm, rank_checks
+
+    with _CollectiveCount() as cc:
+        counts, secs, res = _rank_path(torch, lambda: rank_checks.solid_analysis(
+            mesh, force, fix, kwargs, **extra))
+    res["launches"], res["wall_s"], res["collectives"] = counts, secs, cc.counts
+    if comm.rank() != 0:
+        for k in ("u", "reactions", "cases", "von_mises"):
+            res.pop(k, None)
+    return res
+
+
+def rank_distributed(msh_path, u_probe, mask_probe):
+    """Rank function of 19(a)-(c) and (e), 4 ranks: the collectives, the
+    halo apply at 24x24x96 in float32 and float64, the structured flagship
+    with devices=4, the unstructured flagship file with devices=4."""
+    import torch
+
+    import femx_torch
+    from femx_torch.parallel import comm, rank_checks
+
+    out = {"collectives": rank_checks.collectives(4099, 0, "cuda")}
+    for dt in ("float32", "float64"):
+        counts, secs, res = _rank_path(torch, lambda: rank_checks.structured_apply(
+            FLAGSHIP, (H, H, H), mask_probe, u_probe, dt, "cuda", repeats=20))
+        out[f"halo_{dt}"] = {"launches": counts, "halo_apply_s": res["halo_apply_s"],
+                             **({"halo": res["halo"]} if comm.rank() == 0 else {})}
+    mesh, force, fix = flagship_problem(femx_torch)
+    out["flagship"] = _analysis_path(torch, mesh, force, fix, dict(
+        E=E, v=NU, dtype=np.float32, cg_tol=1e-8, devices=DIST_RANKS, device=DEVICE))
+    del mesh
+    out["unstructured"] = _analysis_path(torch, msh_path, force, fix, dict(
+        E=E, v=NU, dtype=np.float32, cg_tol=1e-8, devices=DIST_RANKS, device=DEVICE))
+    return out
+
+
+def rank_padded():
+    """Rank function of 19(d), 5 ranks: the structured flagship with
+    devices=5 (nz 96 ghost-padded to 100)."""
+    import torch
+
+    import femx_torch
+
+    mesh, force, fix = flagship_problem(femx_torch)
+    return _analysis_path(torch, mesh, force, fix, dict(
+        E=E, v=NU, dtype=np.float32, cg_tol=1e-8, devices=PAD_RANKS, device=DEVICE))
+
+
+def small_cases(force):
+    return [force, [dict(force[0], force_x=700.0, force_y=0.0)]]
+
+
+def rank_small():
+    """Rank function of 19(a) and (f), 2 ranks: the collectives, and
+    modal(refine=True) and solve_cases on the 8x8x32 box with devices=2."""
+    import torch
+
+    import femx_torch
+    from femx_torch.parallel import rank_checks
+
+    mesh, force, fix = flagship_problem(femx_torch, SMALL_H)
+    out = {"collectives": rank_checks.collectives(4099, 0, "cuda")}
+    out["small"] = _analysis_path(torch, mesh, force, fix, dict(
+        E=E, v=NU, cg_tol=1e-10, devices=2, device=DEVICE), cases=small_cases(force),
+        modal=dict(n_modes=3, rho=RHO, refine=True))
+    return out
+
+
+def _check_collectives(res, n):
+    c = res["collectives"]
+    for k, v in c.items():
+        if "/" in k:
+            lim = (1e-6 if k.endswith("float32") else 1e-14) * n
+            check(v <= lim, f"{n}-rank {k} off numpy by {v}")
+    return c
+
+
+def _check_rank_launches(ranks, key, path, want=None):
+    """Every rank launched the path's kernels (and, given want, exactly
+    those counts); returns the per-rank counts for launches_by_path."""
+    per = {f"{path}/rank{r.rank}": r.result[key]["launches"] for r in ranks}
+    for name, counts in per.items():
+        check(counts, f"{name}: no kernel launched")
+        if want is not None:
+            check(counts == want, f"{name}: launches {counts}, expected {want}")
+    return per
+
+
+def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_path):
+    """Phase 19 (see the module docstring)."""
+    from femx_torch.assembly_structured import StructuredSolidOperator
+    from femx_torch.parallel import launch
+
+    out, paths = {}, {}
+    log(" (b) inputs: a random u and the flagship's free mask; the single-device applies")
+    op64 = StructuredSolidOperator.from_lattice(FLAGSHIP, (H, H, H), E, NU, dtype=np.float64,
+                                                device=DEVICE)
+    m3 = np.ones(op64.grid_shape + (3,))
+    m3[:, :, 0] = 0.0  # the z=0 face clamped
+    mask = m3.reshape(-1)
+    u = np.random.default_rng(0).standard_normal(op64.ndof)
+    single = {}
+    for dt in ("float32", "float64"):
+        op = (op64 if dt == "float64" else op64.astype(np.float32)).with_free_mask(
+            op64.to_internal(mask))
+        single[dt] = op.apply_constrained(torch.as_tensor(u, dtype=op.Kcell.dtype,
+                                                          device=DEVICE)).cpu().numpy()
+    del op64, op
+    log(f" (a)-(c), (e): {DIST_RANKS} ranks on the card")
+    t0 = time.perf_counter()
+    ranks = launch(rank_distributed, DIST_RANKS, msh_path, u, mask, device=DEVICE,
+                   timeout=DIST_TIMEOUT, all_ranks=True)
+    t_launch = time.perf_counter() - t0
+    r0 = ranks[0].result
+    col = _check_collectives(r0, DIST_RANKS)
+    log(f"   (a) collectives on CUDA tensors, {DIST_RANKS} ranks, backend "
+        f"{col['backend']}: {json.dumps(col)}")
+    for dt in ("float32", "float64"):
+        rel = rel_diff(r0[f"halo_{dt}"]["halo"], single[dt])
+        per = _check_rank_launches(ranks, f"halo_{dt}", f"dist_halo_{dt}")
+        paths.update(per)
+        ms = [1e3 * r.result[f"halo_{dt}"]["halo_apply_s"] for r in ranks]
+        log(f"   (b) halo apply {dt} at 24x24x96 on {DIST_RANKS} ranks against phase 6's "
+            f"single-device apply: rel {rel:.3e} (limit {TOL[dt]}); wall per apply "
+            f"{[round(m, 3) for m in ms]} ms by rank; launches {list(per.values())}")
+        check(rel <= TOL[dt], f"halo apply {dt} differs from the single-device apply")
+        out[f"halo_{dt}_rel"], out[f"halo_{dt}_apply_ms"] = rel, ms
+
+    f = r0["flagship"]
+    info = f["solve_info"]
+    it = info["iterations"]
+    want = {f"{SCM}/float64": it + 2, f"{SCM}/float32": 5 * (n_levels - 1) * (it + 1)}
+    per = _check_rank_launches(ranks, "flagship", "dist_flagship4", want)
+    paths.update(per)
+    R = np.array([f["reactions"][3 * n:3 * n + 3] for n in f["fixed_nodes"]])
+    relR = rel_diff(R, R_flagship)
+    eq = np.linalg.norm(f["equilibrium"])
+    coll = {k: v / (it + 1) for k, v in f["collectives"].items()}
+    log(f"   (c) flagship devices={DIST_RANKS}: solve_info {info}; stage_times "
+        f"{f['stage_times']}; rank-0 wall {f['wall_s']:.3f} s; collectives per iteration "
+        f"{coll}; corner reactions rel {relR:.3e} from phase 6's; |equilibrium| {eq:.3e} N; "
+        f"launches per rank {want} (as counted)")
+    check(info["devices"] == DIST_RANKS, f"devices {info['devices']}")
+    check(info["converged"] and abs(it - it_flagship) <= 2,
+          f"{it} iterations against phase 6's {it_flagship}")
+    check(relR <= 1e-6 and eq <= 1e-6 * 1000.0, "flagship devices=4 reactions")
+    out["flagship"] = {"solve_info": info, "wall_s": f["wall_s"], "stage_times": f["stage_times"],
+                       "collectives_per_iteration": coll, "corner_rel": relR}
+
+    g = r0["unstructured"]
+    ginfo = g["solve_info"]
+    per = _check_rank_launches(ranks, "unstructured", "dist_unstructured4")
+    paths.update(per)
+    for name, counts in per.items():
+        check(counts.get("take_rows/float64", 0) > 0 and counts.get("take_rows/float32", 0) > 0
+              and counts.get(f"{SCM}/float32", 0) > 0, f"{name}: a kernel missing: {counts}")
+    R = np.array([g["reactions"][3 * n:3 * n + 3] for n in g["fixed_nodes"]])
+    relR = rel_diff(R, R_flagship)
+    eq = np.linalg.norm(g["equilibrium"])
+    coll = {k: v / (ginfo["iterations"] + 1) for k, v in g["collectives"].items()}
+    log(f"   (e) unstructured flagship file, devices={DIST_RANKS}: solve_info {ginfo}; "
+        f"stage_times {g['stage_times']}; rank-0 wall {g['wall_s']:.3f} s; collectives per "
+        f"iteration {coll}; corner reactions rel {relR:.3e} from phase 6's; |equilibrium| "
+        f"{eq:.3e} N; launches {list(per.values())}")
+    check(ginfo["devices"] == DIST_RANKS and ginfo["converged"]
+          and ginfo["method"] == "tg_distributed_lattice_mg_pcg_mixed", str(ginfo))
+    check(relR <= 1e-6 and eq <= 1e-6 * 1000.0, "unstructured devices=4 reactions")
+    out["unstructured"] = {"solve_info": ginfo, "wall_s": g["wall_s"],
+                           "stage_times": g["stage_times"], "collectives_per_iteration": coll,
+                           "corner_rel": relR}
+    out["launch_4_s"] = t_launch
+
+    log(f" (d) the flagship with devices={PAD_RANKS} (nz 96 -> 100)")
+    t0 = time.perf_counter()
+    pranks = launch(rank_padded, PAD_RANKS, device=DEVICE, timeout=DIST_TIMEOUT,
+                    all_ranks=True)
+    p = pranks[0].result
+    pinfo = p["solve_info"]
+    per = {f"dist_padded5/rank{r.rank}": r.result["launches"] for r in pranks}
+    paths.update(per)
+    for name, counts in per.items():
+        check(counts.get(f"{SCM}/float64", 0) > 0 and counts.get(f"{SCM}/float32", 0) > 0,
+              f"{name}: a kernel missing: {counts}")
+    R = np.array([p["reactions"][3 * n:3 * n + 3] for n in p["fixed_nodes"]])
+    relR = rel_diff(R, R_flagship)
+    log(f"   solve_info {pinfo}; rank-0 wall {p['wall_s']:.3f} s (launch "
+        f"{time.perf_counter() - t0:.1f} s); corner reactions rel {relR:.3e}; launches "
+        f"{list(per.values())}")
+    check(pinfo["devices"] == PAD_RANKS and pinfo["padded_nz"] == 100 and pinfo["converged"],
+          str(pinfo))
+    check(relR <= 1e-6, "padded flagship reactions")
+    out["padded"] = {"solve_info": pinfo, "wall_s": p["wall_s"], "corner_rel": relR}
+
+    log(" (a), (f): 2 ranks: the collectives; modal(3, refine=True) and solve_cases on "
+        f"the {SMALL_CELLS} box")
+    sranks = launch(rank_small, 2, device=DEVICE, timeout=DIST_TIMEOUT, all_ranks=True)
+    s0 = sranks[0].result
+    col2 = _check_collectives(s0, 2)
+    log(f"   (a) collectives, 2 ranks: {json.dumps(col2)}")
+    sm = s0["small"]
+    per = {f"dist_small2/rank{r.rank}": r.result["small"]["launches"] for r in sranks}
+    paths.update(per)
+    for name, counts in per.items():
+        check(counts.get(f"{SCM}/float64", 0) > 0, f"{name}: no cell kernel: {counts}")
+    mesh, force, fix = flagship_problem(femx_torch, SMALL_H)
+    check(mesh.structured.n_cells == SMALL_CELLS, str(mesh.structured.n_cells))
+    ref = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=E, v=NU, cg_tol=1e-10,
+                                           solver="mg", verbose=False,
+                                           device=DEVICE).run_simulation()
+    U = ref.solve_cases(small_cases(force))
+    m = ref.modal(n_modes=3, rho=RHO, refine=True)
+    f_ref = m.omega.cpu().numpy() / (2 * np.pi)
+    f_got = sm["omega"] / (2 * np.pi)
+    rel_u, rel_c = rel_diff(sm["u"], ref.u), rel_diff(sm["cases"], U)
+    rel_f = float(np.abs(f_got - f_ref).max() / f_ref.max())
+    log(f"   (f) devices=2: solve_info {sm['solve_info']}; u rel {rel_u:.3e} and cases rel "
+        f"{rel_c:.3e} from the single-device run (iterations {ref.solve_info['iterations']}, "
+        f"cases {[c['iterations'] for c in ref.case_solve_info]}; here "
+        f"{[c['iterations'] for c in sm['case_solve_info']]}); refined f {f_got.tolist()} Hz "
+        f"against {f_ref.tolist()} (rel {rel_f:.3e}); Ritz bounds {sm['modal_error_bounds']}; "
+        f"launches {list(per.values())}")
+    check(sm["solve_info"]["devices"] == 2, str(sm["solve_info"]))
+    check(rel_u <= 1e-9 and rel_c <= 1e-9 and rel_f <= 1e-6, "devices=2 modal/cases differ")
+    out["small"] = {"solve_info": sm["solve_info"], "u_rel": rel_u, "cases_rel": rel_c,
+                    "f_rel": rel_f, "f_hz": f_got.tolist(), "wall_s": sm["wall_s"]}
+
+    log(" (g) python -m femx_torch solid --devices 2 on the same box")
+    args = [sys.executable, "-m", "femx_torch", "solid", "--box", "0.4", "0.4", "1.6",
+            "--mesh-size", str(SMALL_H), "--E", str(E), "--nu", str(NU),
+            "--force", "0,-1000,0@0.2,0.4,1.6", "--devices", "2"]
+    for x, y, z in CORNERS_FLAGSHIP:
+        args += ["--fix", f"{x},{y},{z}:xyz"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=DIST_TIMEOUT)
+    t_cli = time.perf_counter() - t0
+    rows = re.findall(r"Rx=(\S+), Ry=(\S+), Rz=(\S+) N", proc.stdout)
+    R_cli = np.array(rows, dtype=float)
+    R_ref = corner_reactions(ref)
+    log(f"   exit {proc.returncode} in {t_cli:.1f} s; "
+        f"{[ln for ln in proc.stdout.splitlines() if 'solved' in ln]}; corner reactions "
+        f"{R_cli.tolist()}")
+    check(proc.returncode == 0 and "System solved on 2 devices" in proc.stdout,
+          f"CLI --devices 2 failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    check(R_cli.shape == (4, 3) and np.all(np.abs(R_cli - R_ref) <= 1e-4 * np.abs(R_ref)
+                                           + 1e-9 * np.abs(R_ref).max()),
+          "CLI reactions differ from the single-device run's to the printed digits")
+    out["cli_s"] = t_cli
+    return out, paths
+
+
 def main() -> int:
     global CM, GATHER
     import torch
@@ -2244,6 +2639,7 @@ def main() -> int:
         paths["compute_stresses"] = extras["launches_stresses"]
         paths["solve_cases"] = extras["launches_cases"]
         it_flagship = fa_flagship.solve_info["iterations"]
+        levels_flagship = len(fa_flagship._precond.levels)
         del fa_flagship
         log(" (c) checkpoint= on the default case: a cut run, then a resumed one")
         ck = checkpoint_case(torch, femx_torch, R_default, fa_default.solve_info["iterations"])
@@ -2326,6 +2722,11 @@ def main() -> int:
         conv_flag = flagship_conv(torch, femx_torch, it_flagship, R_flagship, warm)
         paths["flagship_conv"] = conv_flag["launches"]
 
+        log("19. the distributed paths: N ranks on the one card (femx_torch.parallel)")
+        dist, dist_paths = distributed_phase(torch, femx_torch, it_flagship, R_flagship,
+                                             levels_flagship, msh_path)
+        paths.update(dist_paths)
+
         def by_path(key):
             return {p: int(c.get(key, 0)) for p, c in paths.items()}
 
@@ -2395,6 +2796,7 @@ def main() -> int:
             "modal_peak_device_bytes": modal["modal_peak_device_bytes"],
             "analysis_modal_s": extras["analysis_modal_s"],
             "compute_stresses_s": extras["compute_stresses_s"],
+            "compute_stresses_rounding_ratio": extras["compute_stresses_rounding_ratio"],
             "compute_stresses_peak_device_bytes": extras["compute_stresses_peak_device_bytes"],
             "solve_cases_iters": extras["solve_cases_iters"],
             "solve_cases_s": extras["solve_cases_s"],
@@ -2423,7 +2825,8 @@ def main() -> int:
             **{f"cli_flagship_{k}": v for k, v in cli_flag.items() if k != "launches"},
             "reports": reports, "cli_subprocess_s": {k: v["s"] for k, v in subs.items()},
             "plots_s": plots, "conv_apply": conv_rows,
-            **{f"flagship_conv_{k}": v for k, v in conv_flag.items() if k != "launches"}}))
+            **{f"flagship_conv_{k}": v for k, v in conv_flag.items() if k != "launches"},
+            "distributed": dist}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"kernels": kernels}))

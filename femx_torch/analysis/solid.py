@@ -45,6 +45,13 @@ solve load cases and checkpoint their solves on the float64-assembled
 operator with the float32 preconditioner (pcg_mixed), not on the float32
 operator (cast up) as femx does, for the reason above.
 
+devices=N (femx/analysis/solid.py:467-474, 798-1050, 1130-1339) runs the
+analysis on every rank of an N-rank process group (femx_torch.parallel.
+launch; femx drives N devices from one process): the z-slab halo MG-PCG on a
+structured box, the sharded TG operator with the distributed lattice MG on
+an unstructured mesh, and solve_cases and modal through them; outside such
+a group it raises ValueError naming the launcher.
+
 Everything runs on `device` (None = CUDA; without CUDA it raises unless the
 caller passes device="cpu"), in `dtype` (None = config.default_dtype(),
 float64 unless FEMX_DTYPE says otherwise).
@@ -149,7 +156,11 @@ class SolidReactionAnalysis:
             raise ValueError("unstructured_operator must be 'tg', 'cluster' or "
                              f"'groupell', got {uop!r}")
         if (devices or 0) > 1:
-            raise NotImplementedError("devices=N is not ported yet (ROADMAP A15)")
+            # femx drives N devices from one process; here the analysis runs
+            # on every rank of an N-rank group (femx_torch.parallel.launch)
+            from femx_torch.parallel import comm
+
+            comm.require_world(int(devices))
         if solver not in ("auto", "mg", "cg", "dense"):
             raise ValueError(f"solver must be 'auto', 'mg', 'cg' or 'dense', got {solver!r}")
         self.device = resolve_device(device)
@@ -164,6 +175,7 @@ class SolidReactionAnalysis:
         self.cg_tol = cg_tol
         self.verbose = verbose
         self.unstructured_operator = uop
+        self.devices = devices
         # the structured apply form, "slot" or "conv" (femx_torch.assembly_conv),
         # kept on the analysis and handed to the operators it builds; femx
         # writes it into os.environ and clears jax's caches instead
@@ -188,6 +200,7 @@ class SolidReactionAnalysis:
         self._precond = None  # what solve() preconditioned with (None: dense)
         self._op64 = None  # the float64 operator of the solve (float32 routes: assembled in f64)
         self._assembled64 = None  # group-ELL / cluster: the float64 build the operator casts
+        self._dist_solver = None  # devices=N: the distributed solver of solve()
 
         self._read_mesh()
         self.C = material_matrix(self.E, self.v)
@@ -292,11 +305,15 @@ class SolidReactionAnalysis:
     def solve(self) -> None:
         self._log("4. Solving the linear system...")
         t0 = time.perf_counter()
+        if (self.devices or 0) > 1 and self._solve_distributed(t0):
+            self.stage_times["solve"] = time.perf_counter() - t0
+            return
         if not self._structured:
             if isinstance(self.operator, _INTERNAL_OPS):
                 self._solve_unstructured(t0)
             else:
                 self._solve_small()
+            self._single_device_after_fallback()
             self._log("   - System solved.")
             self.stage_times["solve"] = time.perf_counter() - t0
             return
@@ -358,6 +375,7 @@ class SolidReactionAnalysis:
         self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
         # the form that ran (the request is gated by size and layer weights)
         self.solve_info["structured_apply"] = "conv" if conv_routing_active(op) else "slot"
+        self._single_device_after_fallback()
         self.u = op.to_global(u_host)
         self._log("   - System solved.")
         self.reaction_forces = op.to_global(r_host)
@@ -492,6 +510,90 @@ class SolidReactionAnalysis:
         self.u = u.cpu().numpy()
         self.reaction_forces = op.apply(u).cpu().numpy()
 
+    def _single_device_after_fallback(self) -> None:
+        """A devices=N analysis that fell back to one device says so."""
+        if (self.devices or 0) > 1:
+            self.solve_info["devices"] = 1
+
+    def _solve_distributed(self, t0: float) -> bool:
+        """devices=N (femx/analysis/solid.py:798-830, 958-1050): the z-slab
+        halo MG-PCG on a structured box (femx_torch.parallel.driver), or the
+        sharded TG operator with the distributed lattice MG on an
+        unstructured mesh (femx_torch.parallel.tg_lattice), on every rank of
+        the group; each rank ends with the full u and the reactions, r = K u
+        through the single-device float64 operator. Returns False, with
+        femx's log line, when the problem cannot be slab-distributed: solve()
+        then takes the single-device route and solve_info["devices"] is 1.
+        float32 analyses run float64 CG on the float64-assembled operator
+        with the float32 preconditioner, as the single-device routes do."""
+        from femx_torch.parallel import comm
+
+        mask_g = np.asarray(self.constraints.free_mask(), dtype=np.float64)
+        dtype = numpy_dtype(self.operator.dtype)
+        m_int = self.operator.to_internal(mask_g) if not isinstance(
+            self.operator, SolidOperator) else mask_g
+        if self._structured:
+            from femx_torch.parallel.driver import DistributedStructuredSolver
+
+            info = self.mesh.structured
+            try:
+                solver = DistributedStructuredSolver(
+                    info.n_cells, info.spacing, self.E, self.v, mask_g, weight=self.weight,
+                    dtype=dtype, devices=self.devices, device=self.device,
+                    apply_form=self.structured_apply)
+            except ValueError as e:
+                self._log(f"   - Distributed solve unavailable ({e}); "
+                          "using the single-device path.")
+                return False
+            u, dinfo = solver.solve(self.f, tol=self.cg_tol, checkpoint_path=self.checkpoint,
+                                    checkpoint_chunk=self.checkpoint_chunk,
+                                    checkpoint_maxiter=self.CHECKPOINT_MAXITER)
+            op = self.operator.with_free_mask(m_int)
+            op64 = op if dtype == np.float64 else StructuredSolidOperator.from_mesh(
+                self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
+                device=self.device, apply_form=self.structured_apply).with_free_mask(m_int)
+            self._precond = StructuredBlockJacobi(op)
+            dinfo["structured_apply"] = "conv" if conv_routing_active(op) else "slot"
+        else:
+            if not isinstance(self.operator, SolidOperatorTG):
+                self._log("   - devices= requested but the generic operator is in use; "
+                          "single-device path.")
+                return False
+            from femx_torch.parallel.tg_lattice import DistributedUnstructuredSolver
+
+            try:
+                solver = DistributedUnstructuredSolver.build(
+                    self.points, self.tetra10_conn, self.E, self.v, mask_g, dtype=dtype,
+                    device=self.device, weight=self.weight)
+            except ValueError as e:
+                self._log(f"   - Distributed unstructured solve unavailable ({e}); "
+                          "using the single-device path.")
+                return False
+            u, it, res, ok = solver.solve(self.f * mask_g, tol=self.cg_tol, maxiter=10000)
+            dinfo = {"method": "tg_distributed_lattice_mg_pcg"
+                               + ("_mixed" if dtype == np.float32 else ""),
+                     "iterations": int(it), "residual": float(res), "converged": bool(ok),
+                     "devices": int(self.devices), "lattice_cells": tuple(solver.n_cells),
+                     "distributed_levels": solver.dmg.n_dist, "backend": comm.backend()}
+            op = self.operator.with_free_mask(m_int)
+            if dtype == np.float64:
+                op64 = op
+            else:
+                op64, _ = SolidOperatorTG.from_mesh(
+                    self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
+                    dtype=np.float64, device=self.device)
+                op64 = op64.with_free_mask(m_int)
+            self._precond = BlockJacobiPrecond(op.soa.block_jacobi_tensors())
+        self.operator, self._op64, self._dist_solver = op, op64, solver
+        dinfo["solve_s"] = round(time.perf_counter() - t0, 3)
+        self.solve_info = dinfo
+        self.u = np.asarray(u)
+        u_int = torch.as_tensor(op.to_internal(self.u), device=self.device)
+        self.reaction_forces = op.to_global(op64.apply(u_int).cpu().numpy())
+        self._log(f"   - System solved on {dinfo['devices']} devices ({dinfo['method']}, "
+                  f"{dinfo['iterations']} iterations).")
+        return True
+
     def _stored_precond(self):
         """The preconditioner of solve(), and the CG iteration cap femx
         gives it in solve_cases: 10,000 for the multigrid and lattice
@@ -532,6 +634,8 @@ class SolidReactionAnalysis:
         # the generic operator works in global DOF order directly
         to_int = getattr(op, "to_internal", lambda v: v)
         to_glob = getattr(op, "to_global", lambda v: v)
+        if self._dist_solver is not None:
+            return self._solve_cases_distributed(force_cases, t, mask_g)
         pre, maxiter = self._stored_precond()
         us, infos = [], []
         for case in force_cases:
@@ -544,6 +648,23 @@ class SolidReactionAnalysis:
             us.append(to_glob(r.x.cpu().numpy()))
             infos.append({"iterations": int(r.iterations), "residual": float(r.residual_norm),
                           "converged": bool(r.residual_norm <= t)})
+        self.case_solve_info = infos
+        return np.stack(us)
+
+    def _solve_cases_distributed(self, force_cases, t: float, mask_g) -> np.ndarray:
+        """devices=N load cases through the distributed solver solve() built
+        (femx/analysis/solid.py:876-903), one after another."""
+        solver = self._dist_solver
+        us, infos = [], []
+        for case in force_cases:
+            fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
+            if self._structured:
+                u, dinfo = solver.solve(fg, tol=t)
+                it, rn, ok = dinfo["iterations"], dinfo["residual"], dinfo["converged"]
+            else:
+                u, it, rn, ok = solver.solve(fg, tol=t, maxiter=10000)
+            us.append(np.asarray(u))
+            infos.append({"iterations": int(it), "residual": float(rn), "converged": bool(ok)})
         self.case_solve_info = infos
         return np.stack(us)
 
@@ -617,14 +738,28 @@ class SolidReactionAnalysis:
         free = (op.free_mask_host if self._structured
                 else op.free_mask.cpu().numpy().astype(np.float64))
         pre, _ = self._stored_precond()
-        res = modal_shift_invert(None, m_use, free, n_modes=n_modes, tol=tol,
-                                 maxiter=maxiter,
-                                 solver_state=(op, pre, float(inner_tol), 4000))
+        dmg = self._modal_dmg() if self._structured and (self.devices or 0) > 1 else None
+        dist_u = (not self._structured and self._dist_solver is not None and not refine)
+        if dmg is not None:
+            from femx_torch.parallel.modal import modal_shift_invert_halo
+
+            res = modal_shift_invert_halo(dmg, m_use, free, n_modes=n_modes, tol=tol,
+                                          maxiter=maxiter, inner_tol=inner_tol)
+        elif dist_u:
+            res = modal_shift_invert(self._unstructured_k_solve(inner_tol), m_use, free,
+                                     n_modes=n_modes, tol=tol, maxiter=maxiter,
+                                     dtype=op.dtype, device=self.device)
+        else:
+            res = modal_shift_invert(None, m_use, free, n_modes=n_modes, tol=tol,
+                                     maxiter=maxiter,
+                                     solver_state=(op, pre, float(inner_tol), 4000))
         self.modal_info = {"iterations": res.iterations,
                            "inner_iterations": res.inner_iterations,
                            "refine_iterations": None}
         if refine:
-            if not (self._structured or isinstance(op, _INTERNAL_OPS)):
+            if dmg is not None:
+                ks_acc = self._halo_accurate_solve(dmg)
+            elif not (self._structured or isinstance(op, _INTERNAL_OPS)):
                 def ks_acc(b):  # the small-mesh operator: the inner solve (femx)
                     return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=inner_tol,
                                maxiter=4000)
@@ -644,7 +779,8 @@ class SolidReactionAnalysis:
                              axis=1)
             res = res._replace(modes=torch.as_tensor(modes, device=self.device))
         self.modal_result = res
-        self._log("   - Modal: f = "
+        where = f" ({self.devices} devices)" if dmg is not None or dist_u else ""
+        self._log(f"   - Modal{where}: f = "
                   + ", ".join(f"{w / (2 * np.pi):.3f}" for w in res.omega.cpu().numpy())
                   + " Hz")
         if refine:
@@ -652,6 +788,58 @@ class SolidReactionAnalysis:
                       f"{float(np.max(self.modal_error_bounds)):.1e} on the "
                       "relative eigenvalue error)")
         return res
+
+    def _modal_dmg(self):
+        """The distributed V-cycle over the analysis' own operator for
+        devices=N modal (femx/analysis/solid.py:1130-1160), or None with
+        femx's log line when the lattice cannot be slab-distributed
+        unpadded (the inner solves then run on one device)."""
+        from femx_torch.parallel.halo import DistributedMultigrid
+
+        info = self.mesh.structured
+        try:
+            mg = StructuredMultigrid(None, info.n_cells, self.E, self.v,
+                                     self.constraints.free_mask(), weight=self.weight,
+                                     dtype=self.operator.dtype.type, fine_op=self.operator,
+                                     spacing=info.spacing, device=self.device)
+            return DistributedMultigrid(mg)
+        except ValueError as e:
+            self._log(f"   - Distributed modal unavailable ({e}); single-device inner solves.")
+            return None
+
+    def _halo_accurate_solve(self, dmg):
+        """refine=True's accurate solves on the ranks: float64 operators
+        pcg_halo to 1e-11; float32 ones float64 CG to 1e-9 on the halo apply
+        of the float64-assembled operator with the float32 distributed
+        V-cycle (femx casts its float32 operator up, solid.py:1167)."""
+        from femx_torch.parallel.halo import HaloStructuredOperator, pcg_halo
+        from femx_torch.solve.cg import CGResult
+
+        if self.operator.dtype == np.float32:
+            halo, tol, low = HaloStructuredOperator(self._op64), 1e-9, torch.float32
+        else:
+            halo, tol, low = dmg.halo, 1e-11, None
+
+        def ks_acc(b):
+            x, it, rn, ok = pcg_halo(halo, b, tol=tol, maxiter=6000, preconditioner=dmg,
+                                     low_dtype=low, as_tensor=True)
+            return CGResult(x=x, iterations=it, residual_norm=rn, converged=ok)
+
+        return ks_acc
+
+    def _unstructured_k_solve(self, inner_tol: float):
+        """The Lanczos inner solve of devices=N on a TG mesh: one distributed
+        lattice-MG solve (femx/analysis/solid.py:1309-1325)."""
+        op, solver = self.operator, self._dist_solver
+
+        def k_solve(b):
+            x, _it, res_i, ok_i = solver.solve(op.to_global(b.cpu().numpy()), tol=inner_tol,
+                                               maxiter=10000)
+            if not ok_i and not np.isfinite(res_i):
+                raise RuntimeError(f"distributed inner solve diverged: {res_i}")
+            return torch.as_tensor(op.to_internal(x), dtype=b.dtype, device=b.device)
+
+        return k_solve
 
     def _refine_modal(self, res: ModalResult, ks_acc, m_diag) -> ModalResult:
         """Inverse-iteration + Rayleigh-Ritz refinement of a ModalResult in

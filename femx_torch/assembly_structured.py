@@ -46,7 +46,7 @@ from femx_torch.elements.tet10 import (
     DN_NATURAL, GAUSS_WEIGHT_CORRECT, MASS_HAT, _SEL, material_matrix)
 
 __all__ = ["StructuredSolidOperator", "StructuredBlockJacobi", "constrained_block_inverse",
-           "conv_routing_active"]
+           "conv_routing_active", "pad_z_raster", "unpad_z_raster"]
 
 APPLY_FORMS = ("slot", "conv")
 
@@ -490,3 +490,22 @@ def constrained_block_inverse(bd: np.ndarray, mask3: np.ndarray) -> np.ndarray:
     blk *= mask3[:, :, None] * mask3[:, None, :]
     blk += (1.0 - mask3)[:, :, None] * np.eye(3, dtype=bd.dtype)
     return _inv3x3_np(blk)
+
+
+def pad_z_raster(v_global: np.ndarray, grid_old, grid_new) -> np.ndarray:
+    """Embed a global raster DOF vector into a z-padded lattice (zeros in
+    the padded planes). grid_* are NODE extents (2*cells+1). The
+    distributed solver ghost-pads z up to a multiple of twice the rank
+    count (femx_torch.parallel.driver)."""
+    gx, gy, gz = grid_old
+    g = np.asarray(v_global).reshape(gx, gy, gz, 3)
+    out = np.zeros((gx, gy, grid_new[2], 3), dtype=g.dtype)
+    out[:, :, :gz] = g
+    return out.reshape(-1)
+
+
+def unpad_z_raster(v_global_p: np.ndarray, grid_old, grid_new) -> np.ndarray:
+    """Inverse of pad_z_raster: slice the real lattice back out."""
+    gx, gy, gz = grid_old
+    g = np.asarray(v_global_p).reshape(gx, gy, grid_new[2], 3)
+    return np.ascontiguousarray(g[:, :, :gz]).reshape(-1)

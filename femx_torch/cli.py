@@ -128,8 +128,10 @@ def build_parser() -> argparse.ArgumentParser:
     so.add_argument("--html", default=None,
                     help="export standalone interactive WebGL viewer")
     so.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="multi-device solves (femx's z-slab halo MG-PCG); "
-                         "N > 1 is not ported yet and raises")
+                    help="multi-device solves: N ranks, one process each "
+                         "(z-slab halo MG-PCG on a box, sharded TG with the "
+                         "distributed lattice MG on a .msh); rank 0 prints "
+                         "and writes the outputs")
     so.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="resumable solve: persist CG state to PATH.npz "
                          "between iteration chunks and resume from it on "
@@ -269,12 +271,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# deadline (s) of a --devices N run: past it every rank is killed
+DEVICES_TIMEOUT = 3600.0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     # the device every analysis of this run gets: the card unless --platform cpu
     from femx_torch.config import resolve_device
 
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
+
+    if args.cmd == "solid" and (args.devices or 0) > 1:
+        from femx_torch.parallel import launch
+
+        return launch(_solid_rank, args.devices, argv, device=device.type,
+                      timeout=DEVICES_TIMEOUT)
 
     if args.cmd == "mesh-box":
         from femx_torch.mesh import box_tet10, write_msh
@@ -294,59 +307,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "solid":
-        from femx_torch.analysis import SolidReactionAnalysis
-        from femx_torch.config import ReferenceCompat
-        from femx_torch.mesh import box_tet10, read_msh
-
-        forces = [_parse_force_at(f) for f in args.force]
-        fixes = [_parse_fix_at(f) for f in args.fix]
-        if args.msh:
-            mesh = read_msh(args.msh)
-        elif args.box:
-            mesh = box_tet10(
-                *args.box, mesh_size=args.mesh_size,
-                force_points=[[f["force_x_pstn"], f["force_y_pstn"], f["force_z_pstn"]] for f in forces],
-                fix_points=[[f["pos_x"], f["pos_y"], f["pos_z"]] for f in fixes],
-            )
-        else:
-            print("error: provide --msh or --box", file=sys.stderr)
-            return 2
-        compat = ReferenceCompat(tet10_quadrature_weight_bug=args.compat_quadrature_bug)
-        fa = SolidReactionAnalysis(mesh, forces, fixes, E=args.E, v=args.nu,
-                                   compat=compat, solver=args.solver,
-                                   devices=args.devices,
-                                   checkpoint=args.checkpoint,
-                                   checkpoint_chunk=args.checkpoint_chunk,
-                                   unstructured_operator=args.unstructured_op,
-                                   structured_apply=args.structured_apply,
-                                   device=device)
-        fa.run_simulation(report=False)
-        if args.stress:
-            import numpy as np
-
-            _, vm = fa.compute_stresses()
-            imax = int(np.argmax(vm))
-            x, y, z = (float(v) for v in fa.points[imax])
-            print(f"Max von Mises stress: {vm[imax] / 1e6:.4f} MPa at node "
-                  f"{imax} ({x:g}, {y:g}, {z:g})")
-        if args.modal:
-            import numpy as np
-
-            res = fa.modal(n_modes=args.modal, rho=args.rho)
-            hz = res.omega.cpu().numpy() / (2 * np.pi)
-            print("Natural frequencies [Hz]: "
-                  + ", ".join(f"{f:.4f}" for f in hz))
-        if args.report:  # after stress/modal so the report includes them
-            fa.generate_report(args.report)
-        if args.plot:
-            fa.plot(show_window=False, filename=args.plot,
-                    color="von_mises" if args.plot_color == "von_mises"
-                    else "disp")
-            print(f"Saved result view to {args.plot}")
-        if args.html:
-            out = fa.export_html(args.html)
-            print(f"Saved interactive viewer to {out}")
-        return 0
+        return _run_solid(args, device)
 
     if args.cmd == "beam":
         from femx_torch.analysis import BeamAnalysis
@@ -539,3 +500,75 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     sys.exit(main())
+
+
+def _solid_rank(argv) -> int:
+    """One rank of `solid --devices N`: the same analysis on every rank;
+    rank 0 prints and writes the report and viewer outputs."""
+    from femx_torch.parallel import comm
+
+    args = build_parser().parse_args(argv)
+    return _run_solid(args, comm.rank_device(comm.rank(), "cpu" if args.platform == "cpu"
+                                             else "cuda"), lead=comm.rank() == 0)
+
+
+def _run_solid(args, device, lead: bool = True) -> int:
+    """The solid subcommand; with lead False (ranks other than 0 of a
+    --devices run) it prints nothing and writes no file."""
+    from femx_torch.analysis import SolidReactionAnalysis
+    from femx_torch.config import ReferenceCompat
+    from femx_torch.mesh import box_tet10, read_msh
+
+    forces = [_parse_force_at(f) for f in args.force]
+    fixes = [_parse_fix_at(f) for f in args.fix]
+    if args.msh:
+        mesh = read_msh(args.msh)
+    elif args.box:
+        mesh = box_tet10(
+            *args.box, mesh_size=args.mesh_size,
+            force_points=[[f["force_x_pstn"], f["force_y_pstn"], f["force_z_pstn"]] for f in forces],
+            fix_points=[[f["pos_x"], f["pos_y"], f["pos_z"]] for f in fixes],
+        )
+    else:
+        if lead:
+            print("error: provide --msh or --box", file=sys.stderr)
+        return 2
+    compat = ReferenceCompat(tet10_quadrature_weight_bug=args.compat_quadrature_bug)
+    fa = SolidReactionAnalysis(mesh, forces, fixes, E=args.E, v=args.nu,
+                               compat=compat, solver=args.solver,
+                               devices=args.devices,
+                               checkpoint=args.checkpoint,
+                               checkpoint_chunk=args.checkpoint_chunk,
+                               unstructured_operator=args.unstructured_op,
+                               structured_apply=args.structured_apply,
+                               verbose=lead, device=device)
+    fa.run_simulation(report=False)
+    say = print if lead else (lambda *a, **k: None)
+    if args.stress:
+        import numpy as np
+
+        _, vm = fa.compute_stresses()
+        imax = int(np.argmax(vm))
+        x, y, z = (float(v) for v in fa.points[imax])
+        say(f"Max von Mises stress: {vm[imax] / 1e6:.4f} MPa at node "
+              f"{imax} ({x:g}, {y:g}, {z:g})")
+    if args.modal:
+        import numpy as np
+
+        res = fa.modal(n_modes=args.modal, rho=args.rho)
+        hz = res.omega.cpu().numpy() / (2 * np.pi)
+        say("Natural frequencies [Hz]: "
+              + ", ".join(f"{f:.4f}" for f in hz))
+    if not lead:  # the modal solve above runs on every rank; outputs on rank 0
+        return 0
+    if args.report:  # after stress/modal so the report includes them
+        fa.generate_report(args.report)
+    if args.plot:
+        fa.plot(show_window=False, filename=args.plot,
+                color="von_mises" if args.plot_color == "von_mises"
+                else "disp")
+        print(f"Saved result view to {args.plot}")
+    if args.html:
+        out = fa.export_html(args.html)
+        print(f"Saved interactive viewer to {out}")
+    return 0

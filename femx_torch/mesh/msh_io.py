@@ -7,10 +7,12 @@ written by gmsh itself and format 2.2 as the interchange format that
 it back). Only the sections the solvers need are parsed ($PhysicalNames,
 $Entities, $Nodes, $Elements); others are skipped.
 
-Numeric section bodies are parsed with one bulk ``np.array(text.split(),
-float64)`` (femx's numpy branch, femx/_native.py:63-79). femx's optional C++
-tokenizer (native/) and its meshio fallback for other revisions are not
-ported: a file this reader rejects raises ValueError.
+Numeric section bodies are parsed in bulk by femx_torch._native: the C++
+tokenizer of native/fast_tokens.cpp through ctypes, or one
+``np.array(text.split(), float64)`` on a host without a compiler. A path
+this reader rejects (other .msh revisions, other formats) falls back to
+``meshio.read`` when meshio is installed, as femx does; the fallback keeps
+gmsh's Tet10 node order (see _from_meshio).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from femx_torch._native import parse_numbers
 from femx_torch.mesh.core import GMSH_TYPE_TO_NAME, NAME_TO_GMSH_TYPE, Mesh
 
 
@@ -28,7 +31,7 @@ class _Tokens:
     in bulk to float64 (integer tags up to 2^53 are exact)."""
 
     def __init__(self, body: str):
-        self.a = np.array(body.split(), dtype=np.float64)
+        self.a = parse_numbers(body)
         self.i = 0
 
     def next_int(self) -> int:
@@ -322,8 +325,54 @@ def _read_msh_binary(data: bytes) -> Mesh:
 
 def read_msh(path_or_text) -> Mesh:
     """Read a Gmsh .msh file — ASCII or binary, format 2.2 or 4.1 — from a
-    path, an open file, bytes, or the text itself."""
-    return _read_msh_native(path_or_text)
+    path, an open file, bytes, or the text itself. A path this parser
+    rejects falls back to ``meshio.read`` when meshio is installed (the
+    reference ingests every mesh through meshio, ReactionSolver.py:62)."""
+    is_path = not (hasattr(path_or_text, "read")
+                   or isinstance(path_or_text, (bytes, bytearray))
+                   or (isinstance(path_or_text, str) and "$MeshFormat" in path_or_text))
+    try:
+        return _read_msh_native(path_or_text)
+    except ValueError as parse_err:
+        if not is_path:
+            raise
+        try:
+            import meshio  # optional; absent on the test and card hosts
+        except ImportError:
+            raise parse_err
+        return _from_meshio(meshio.read(path_or_text))
+
+
+# meshio stores Tet10 in VTK order, nodes 8 and 9 swapped from gmsh's
+# (meshio's gmsh reader permutes them); the port keeps gmsh's order
+_MESHIO_TO_GMSH = {"tetra10": [0, 1, 2, 3, 4, 5, 6, 7, 9, 8]}
+
+
+def _from_meshio(m) -> Mesh:
+    """A ``meshio.Mesh`` as the port's Mesh: the physical-group contract of
+    the reference (field_data name -> (tag, dim), cell_data
+    'gmsh:physical' per block), with Tet10 blocks put back in gmsh's node
+    order, which the native reader keeps. femx's fallback leaves meshio's
+    order (femx/mesh/msh_io.py:434), so its Tet10 meshes from the fallback
+    and from its own reader differ in nodes 8 and 9."""
+    cells, cell_physical = {}, {}
+    try:
+        phys = m.cell_data_dict.get("gmsh:physical", {})
+    except (AttributeError, KeyError):  # meshio versions without cell_data_dict
+        phys = {}
+    for block in m.cells:
+        name, data = block.type, np.asarray(block.data)
+        if name in _MESHIO_TO_GMSH:
+            data = data[:, _MESHIO_TO_GMSH[name]]
+        cells[name] = np.concatenate([cells[name], data]) if name in cells else data
+    for name, tags in phys.items():
+        cell_physical[name] = np.asarray(tags, dtype=np.int32).reshape(-1)
+    field_data = {str(k): (int(np.asarray(v).reshape(-1)[0]), int(np.asarray(v).reshape(-1)[1]))
+                  for k, v in (m.field_data or {}).items()}
+    mesh = Mesh(points=np.asarray(m.points, dtype=np.float64), cells=cells,
+                cell_physical=cell_physical, field_data=field_data)
+    mesh.validate()
+    return mesh
 
 
 def _read_msh_native(path_or_text) -> Mesh:

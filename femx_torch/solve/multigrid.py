@@ -20,7 +20,10 @@ transpose of prolongation, which keeps the V-cycle SPD for CG.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import hashlib
+import os
+import tempfile
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -28,6 +31,90 @@ import torch
 from femx_torch.assembly_structured import (
     _SLOTS, StructuredSolidOperator, _cell_stiffness)
 from femx_torch.config import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# Persistent hierarchy cache (femx/solve/multigrid.py:42-140): the setup
+# products that cost seconds at the flagship (per-level block-Jacobi
+# inverses, smoother damping, the dense coarse inverse) are pure functions
+# of (n_cells, spacing, E, nu, weight, dtype, smoother parameters, fine
+# mask), so they are saved as .npz and reloaded by later runs. femx's key
+# and payload; the directory is FEMX_MG_CACHE, by default the port's build
+# directory (build/femx_torch/mg_cache in the checkout; femx's default is
+# ~/.cache/femx_mg). FEMX_MG_CACHE=0 (or off, or empty) disables it.
+# ---------------------------------------------------------------------------
+_MG_CACHE_VERSION = 5
+
+
+def _mg_cache_dir() -> Optional[str]:
+    from femx_torch.build import BUILD_DIR
+
+    d = os.environ.get("FEMX_MG_CACHE", str(BUILD_DIR / "mg_cache"))
+    return None if d in ("0", "off", "") else d
+
+
+def _mg_cache_key(n, sp, E, nu, weight, dtype, n_smooth, omega, coarse_dof_limit, mask_grid,
+                  extra: str = "") -> str:
+    """femx's key: the hierarchy's inputs and the fine mask's bits."""
+    h = hashlib.sha256()
+    key = (_MG_CACHE_VERSION, tuple(n), tuple(sp), float(E), float(nu),
+           None if weight is None else float(weight), np.dtype(dtype).name, int(n_smooth),
+           float(omega), int(coarse_dof_limit))
+    h.update(repr(key + ((extra,) if extra else ())).encode())
+    h.update(np.packbits(np.ascontiguousarray(mask_grid > 0.5).reshape(-1)).tobytes())
+    return h.hexdigest()[:32]
+
+
+def _mg_cache_load(key: str) -> Optional[dict]:
+    d = _mg_cache_dir()
+    path = None if d is None else os.path.join(d, f"hier_{key}.npz")
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    except Exception:  # noqa: BLE001 - a corrupt or partial file is a miss
+        return None
+
+
+def _mg_cache_save(key: str, payload: dict) -> None:
+    d = _mg_cache_dir()
+    if d is None:
+        return
+    try:
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.npz")  # .npz: savez writes in place
+        os.close(fd)
+        np.savez(tmp, **payload)
+        os.replace(tmp, os.path.join(d, f"hier_{key}.npz"))
+        _mg_cache_trim(d)
+    except OSError:
+        pass  # best-effort: the solve goes on without it
+
+
+def _mg_cache_trim(d: str, cap_bytes: int = 8 << 30) -> None:
+    """Drop the least recently used entries past `cap_bytes`
+    (FEMX_MG_CACHE_GB overrides the 8 GB default)."""
+    cap = int(float(os.environ.get("FEMX_MG_CACHE_GB", 0)) * 2**30) or cap_bytes
+    entries, total = [], 0
+    for name in os.listdir(d):
+        if not (name.startswith("hier_") and name.endswith(".npz")):
+            continue
+        p = os.path.join(d, name)
+        try:
+            st = os.stat(p)
+        except OSError:
+            continue
+        entries.append((st.st_atime, st.st_size, p))
+        total += st.st_size
+    for _, size, p in sorted(entries):
+        if total <= cap:
+            break
+        try:
+            os.remove(p)
+            total -= size
+        except OSError:
+            pass
 
 
 # ---------------------------------------------------------------------------
@@ -283,10 +370,30 @@ class StructuredMultigrid:
                 f"(> coarse_dense_limit={coarse_dense_limit}); cell counts "
                 f"{tuple(n_cells)} do not coarsen far enough")
 
+        extra = "" if smoother == "jacobi" else f"cheb:{self.cheb_lower}:{self.cheb_upper}"
+        if semi_stop_dof != 8000:
+            extra += f"|ss:{semi_stop_dof}"
+        if fine_op is not None and fine_op._cell_weight_host() is not None:
+            # a weighted fine operator (the distributed solver's ghost-padded
+            # lattice) has other blocks than an unweighted one on the same
+            # mask; femx's key leaves the weights out
+            extra += "|fw:" + hashlib.sha256(
+                fine_op._cell_weight_host().tobytes()).hexdigest()[:16]
+        ck = _mg_cache_key(specs[0][0], specs[0][1], E, nu, weight, dtype, n_smooth, omega,
+                           coarse_dof_limit, specs[0][2], extra=extra)
+        cached = _mg_cache_load(ck)
+        level_cells = np.asarray([sp_[0] for sp_ in specs], dtype=np.int64)
+        if cached is not None and (
+                int(cached["n_levels"]) != len(specs)
+                or not np.array_equal(cached.get("level_cells", np.empty((0, 3), np.int64)),
+                                      level_cells)):
+            cached = None  # another layout under the same key
+        self.setup_cache_hit = cached is not None
+
         # ---- per-level operators: the caller's fine operator, exact 2x
         # rescaling on uniform steps, a single-cell rebuild on semi steps.
-        # Block-Jacobi tensors are built on the host and kept there for the
-        # power iterations below.
+        # Block-Jacobi tensors are built on the host (or read from the
+        # cache) and kept there for the power iterations below.
         prev_op = None
         binv_hosts = []
         # the fine operator's apply form reaches every level (each level's
@@ -312,7 +419,8 @@ class StructuredMultigrid:
                     apply_form=op.apply_form)
             prev_op = op
             op = op.with_free_mask(op.to_internal(mgrid.reshape(-1)))
-            bh = [b.astype(dtype) for b in op.block_jacobi_tensors()]
+            bh = ([cached[f"binv_{i}_{p}"] for p in range(8)] if cached is not None
+                  else [b.astype(dtype) for b in op.block_jacobi_tensors()])
             binv_hosts.append(bh)
             self.levels.append(_Level(op=op, binv=[torch.as_tensor(b, device=dev)
                                                    for b in bh]))
@@ -321,6 +429,11 @@ class StructuredMultigrid:
         # damped block-Jacobi diverges on anisotropic (semi-coarsened) and
         # ghost-weighted levels, which get 4 / (3 lambda_max(M^-1 K)) from a
         # host power iteration. Chebyshev needs lambda_max on every level.
+        if cached is not None:
+            self.omegas = [float(w) for w in cached["omegas"]]
+            self.lmaxs = [float(v) for v in cached["lmaxs"]] if "lmaxs" in cached else None
+            self._coarse_inv = torch.as_tensor(cached["coarse_kinv"], device=dev)
+            return
         self.omegas = []
         self.lmaxs = [] if smoother == "chebyshev" else None
         for (ni, spi, _mg, wts), lvl, binv_h in zip(specs, self.levels, binv_hosts):
@@ -361,6 +474,16 @@ class StructuredMultigrid:
             Kinv = torch.cholesky_inverse(L).numpy()
         Kinv = 0.5 * (Kinv + Kinv.T)
         self._coarse_inv = torch.as_tensor(Kinv.astype(dtype), device=dev)
+
+        payload = {"n_levels": np.int64(len(specs)), "level_cells": level_cells,
+                   "omegas": np.asarray(self.omegas, dtype=np.float64),
+                   "coarse_kinv": Kinv.astype(dtype)}
+        if self.lmaxs is not None:
+            payload["lmaxs"] = np.asarray(self.lmaxs, np.float64)
+        for i, bh in enumerate(binv_hosts):
+            for p, b in enumerate(bh):
+                payload[f"binv_{i}_{p}"] = np.asarray(b)
+        _mg_cache_save(ck, payload)
 
     @classmethod
     def from_parts(cls, levels: List[_Level], omegas, coarse_inv: torch.Tensor,

@@ -185,18 +185,23 @@ def test_pipe_json(capsys):
     _assert_close_json(got, ref)
 
 
-def test_devices_and_platform_raise(capsys):
+def test_devices_and_platform_raise(capfd):
+    """--devices 2 starts two ranks (femx_torch.parallel.launch) and solves
+    on both; the platforms without a card raise."""
     args = ["solid", "--box", "0.2", "0.1", "0.1", "--mesh-size", "0.05", "--E", "2e11",
             "--nu", "0.3"]
-    with pytest.raises(NotImplementedError, match="A15"):
-        femx_torch.cli.main(CPU + args + ["--devices", "2"])
+    box = ["solid", "--box", "0.2", "0.2", "0.4", "--mesh-size", "0.05", "--E", "2e11",
+           "--nu", "0.3", "--force", "0,-100,0@0.1,0.1,0.4", "--fix", "0,0,0:xyz",
+           "--fix", "0.2,0,0:xyz", "--fix", "0,0.2,0:xyz", "--fix", "0.2,0.2,0:xyz"]
+    assert femx_torch.cli.main(CPU + box + ["--devices", "2"]) == 0
+    assert "System solved on 2 devices" in capfd.readouterr().out
     if not torch.cuda.is_available():
         for platform in ([], ["--platform", "gpu"], ["--platform", "auto"]):
             with pytest.raises(RuntimeError, match="CUDA"):
                 femx_torch.cli.main(platform + args)
     with pytest.raises(SystemExit):
         femx_torch.cli.main(["--platform", "tpu"] + args)
-    capsys.readouterr()
+    capfd.readouterr()
 
 
 def test_module_entry_runs_with_jax_and_femx_blocked():

@@ -688,3 +688,53 @@ def test_cli_runs_on_the_card_by_default(cuda, tmp_path, capsys):
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     np.testing.assert_allclose(got["critical_speeds_rpm"], want["critical_speeds_rpm"],
                                rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12), ("float32", 1e-5)])
+def test_two_rank_halo_apply_on_the_card_matches_the_single_device_apply(cuda, dtype, tol):
+    """Two ranks on the card (gloo on CUDA tensors when they share one
+    card): the constrained halo apply and the all_reduce sharded apply
+    against the single-device apply, with the cell kernel launched on both
+    ranks."""
+    from femx_torch.parallel import launch, rank_checks
+
+    n = (8, 8, 16)
+    op = StructuredSolidOperator.from_lattice(n, (0.05, 0.05, 0.05), 2e11, 0.3,
+                                              dtype=np.dtype(dtype), device=cuda)
+    m3 = np.ones(op.grid_shape + (3,))
+    m3[:, :, 0] = 0.0
+    mask = m3.reshape(-1)
+    op = op.with_free_mask(op.to_internal(mask))
+    u = np.random.default_rng(0).standard_normal(op.ndof)
+    want = op.apply_constrained(torch.as_tensor(u, dtype=op.Kcell.dtype, device=cuda)).cpu().numpy()
+    ranks = launch(rank_checks.structured_apply, 2, n, (0.05, 0.05, 0.05), mask, u, dtype,
+                   "cuda", timeout=300, all_ranks=True)
+    got = ranks[0].result
+    scale = np.abs(want).max()
+    assert np.abs(got["halo"] - want).max() <= tol * scale
+    assert np.abs(got["sharded"] - want).max() <= tol * scale
+    assert all(r.launches.get(f"structured_cell_matmul/{dtype}", 0) > 0 for r in ranks)
+
+
+def test_two_rank_analysis_on_the_card_matches_the_cpu_ranks(cuda):
+    """SolidReactionAnalysis(devices=2) on two card ranks against the same
+    run on two CPU ranks: u and reactions to 1e-9 of their largest entry."""
+    from femx_torch.parallel import launch, rank_checks
+
+    cells = (4, 4, 8)
+    mesh = femx_torch.box_tet10_from_cells(cells, (0.05, 0.05, 0.05))
+    fixes = [{"pos_x": x, "pos_y": y, "pos_z": 0.0, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+             for x, y in [(0, 0), (0, 0.2), (0.2, 0), (0.2, 0.2)]]
+    forces = [{"force_x": 0, "force_y": -500.0, "force_z": 0, "force_x_pstn": 0.1,
+               "force_y_pstn": 0.1, "force_z_pstn": 0.4}]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = launch(rank_checks.solid_analysis, 2, mesh, forces, fixes,
+                          dict(E=2e11, v=0.3, cg_tol=1e-10, devices=2, device=dev),
+                          device=dev, timeout=300)
+    assert out["cuda"]["solve_info"]["devices"] == 2
+    assert abs(out["cuda"]["solve_info"]["iterations"]
+               - out["cpu"]["solve_info"]["iterations"]) <= 1
+    for k in ("u", "reactions"):
+        want = out["cpu"][k]
+        assert np.abs(out["cuda"][k] - want).max() <= 1e-9 * np.abs(want).max()

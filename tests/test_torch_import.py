@@ -204,3 +204,25 @@ print("OK")
 """
     p = _run(code)
     assert p.returncode == 0 and p.stdout.startswith("OK"), p.stdout + p.stderr
+
+
+def test_parallel_imports_without_jax_and_covers_femx_parallel():
+    """femx_torch.parallel imports with jax and femx blocked, and its
+    __all__ holds every name of femx.parallel's (read from the source, so
+    this test imports no jax)."""
+    import ast
+
+    tree = ast.parse((REPO / "femx" / "parallel" / "__init__.py").read_text())
+    femx_all = next(ast.literal_eval(node.value) for node in tree.body
+                    if isinstance(node, ast.Assign)
+                    and any(getattr(t, "id", None) == "__all__" for t in node.targets))
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["femx"] = None
+import femx_torch.parallel as p, femx_torch.parallel.rank_checks, femx_torch.graft_entry
+print(" ".join(p.__all__))
+"""
+    out = _run(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert set(femx_all) <= set(out.stdout.split())

@@ -215,12 +215,18 @@ def test_femx_f32_refined_solve_loses_the_same_equilibrium(point_supported_schem
     (dict(unstructured_operator="cluster"), "A11"),
 ])
 def test_unported_options_raise(kw, item):
-    """The options still to port raise naming their ROADMAP item. A11
-    (group-ELL and cluster) is ported: its cases check that the option is
-    taken and builds its operator on an unstructured mesh. A14 (the conv
-    apply) is ported: its case checks that the structured operator takes the
-    form."""
+    """The options of the ROADMAP items, each ported now. A11 (group-ELL and
+    cluster): the option is taken and builds its operator on an unstructured
+    mesh. A14 (the conv apply): the structured operator takes the form. A15
+    (devices=N): outside an N-rank process group the analysis raises
+    ValueError naming femx_torch.parallel.launch (femx drives N devices from
+    one process; tests/test_torch_parallel_*.py run the ranks)."""
     mesh = femx_torch.box_tet10(0.2, 0.1, 0.1, 0.05)
+    if item == "A15":
+        with pytest.raises(ValueError, match="femx_torch.parallel.launch"):
+            femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
+                                             device="cpu", **kw)
+        return
     if item == "A14":
         fa = femx_torch.SolidReactionAnalysis(mesh, [], [], E=E, v=NU, verbose=False,
                                               device="cpu", **kw)
