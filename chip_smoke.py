@@ -149,7 +149,8 @@ STRESS_ROUNDING_STEPS eps times the sum of its terms' magnitudes (the two
 runs sum in other orders; the card alone is checked run to run).
 Phases 5-8, 10-19 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
-count its iteration counts imply. The .msh file of phase 8 (read again
+count its iteration counts imply. The run sets FEMX_MG_CACHE=0: the multigrid disk cache is off, so every
+hierarchy setup it times is a full setup. The .msh file of phase 8 (read again
 in 14(b)) is written under build/chip_smoke/ and deleted at the end, as
 is phase 17's directory there.
 The last two lines are a {"kernels": [...]} JSON object and the
@@ -2306,13 +2307,16 @@ def _rank_path(torch, fn):
 
 def _analysis_path(torch, mesh, force, fix, kwargs, **extra):
     """One SolidReactionAnalysis(devices=N) path in a rank: its launches,
-    wall, collectives and (rank 0 only) the arrays."""
+    wall, collectives, the rank's peak device memory and (rank 0 only) the
+    arrays."""
     from femx_torch.parallel import comm, rank_checks
 
+    torch.cuda.reset_peak_memory_stats()
     with _CollectiveCount() as cc:
         counts, secs, res = _rank_path(torch, lambda: rank_checks.solid_analysis(
             mesh, force, fix, kwargs, **extra))
     res["launches"], res["wall_s"], res["collectives"] = counts, secs, cc.counts
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     if comm.rank() != 0:
         for k in ("u", "reactions", "cases", "von_mises"):
             res.pop(k, None)
@@ -2395,8 +2399,17 @@ def _check_rank_launches(ranks, key, path, want=None):
     return per
 
 
-def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_path):
-    """Phase 19 (see the module docstring)."""
+def _peaks_mib(ranks, key=None):
+    return [round((r.result[key] if key else r.result)["peak_device_bytes"] / 2 ** 20, 1)
+            for r in ranks]
+
+
+def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_path,
+                      peak_flagship):
+    """Phase 19 (see the module docstring). Every rank builds the whole
+    analysis (the full operator, the slab operators and the hierarchy), so
+    each rank's peak device memory is printed beside phase 6's one-device
+    peak (peak_flagship, bytes)."""
     from femx_torch.assembly_structured import StructuredSolidOperator
     from femx_torch.parallel import launch
 
@@ -2448,13 +2461,16 @@ def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_
     log(f"   (c) flagship devices={DIST_RANKS}: solve_info {info}; stage_times "
         f"{f['stage_times']}; rank-0 wall {f['wall_s']:.3f} s; collectives per iteration "
         f"{coll}; corner reactions rel {relR:.3e} from phase 6's; |equilibrium| {eq:.3e} N; "
-        f"launches per rank {want} (as counted)")
+        f"launches per rank {want} (as counted); peak device memory by rank "
+        f"{_peaks_mib(ranks, 'flagship')} MiB (one device, phase 6: "
+        f"{peak_flagship / 2 ** 20:.1f} MiB)")
     check(info["devices"] == DIST_RANKS, f"devices {info['devices']}")
     check(info["converged"] and abs(it - it_flagship) <= 2,
           f"{it} iterations against phase 6's {it_flagship}")
     check(relR <= 1e-6 and eq <= 1e-6 * 1000.0, "flagship devices=4 reactions")
     out["flagship"] = {"solve_info": info, "wall_s": f["wall_s"], "stage_times": f["stage_times"],
-                       "collectives_per_iteration": coll, "corner_rel": relR}
+                       "collectives_per_iteration": coll, "corner_rel": relR,
+                       "peak_mib_by_rank": _peaks_mib(ranks, "flagship")}
 
     g = r0["unstructured"]
     ginfo = g["solve_info"]
@@ -2470,7 +2486,8 @@ def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_
     log(f"   (e) unstructured flagship file, devices={DIST_RANKS}: solve_info {ginfo}; "
         f"stage_times {g['stage_times']}; rank-0 wall {g['wall_s']:.3f} s; collectives per "
         f"iteration {coll}; corner reactions rel {relR:.3e} from phase 6's; |equilibrium| "
-        f"{eq:.3e} N; launches {list(per.values())}")
+        f"{eq:.3e} N; launches {list(per.values())}; peak device memory by rank "
+        f"{_peaks_mib(ranks, 'unstructured')} MiB")
     check(ginfo["devices"] == DIST_RANKS and ginfo["converged"]
           and ginfo["method"] == "tg_distributed_lattice_mg_pcg_mixed", str(ginfo))
     check(relR <= 1e-6 and eq <= 1e-6 * 1000.0, "unstructured devices=4 reactions")
@@ -2494,7 +2511,7 @@ def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_
     relR = rel_diff(R, R_flagship)
     log(f"   solve_info {pinfo}; rank-0 wall {p['wall_s']:.3f} s (launch "
         f"{time.perf_counter() - t0:.1f} s); corner reactions rel {relR:.3e}; launches "
-        f"{list(per.values())}")
+        f"{list(per.values())}; peak device memory by rank {_peaks_mib(pranks)} MiB")
     check(pinfo["devices"] == PAD_RANKS and pinfo["padded_nz"] == 100 and pinfo["converged"],
           str(pinfo))
     check(relR <= 1e-6, "padded flagship reactions")
@@ -2567,6 +2584,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the multigrid disk cache off (ranks and subprocesses inherit it): every
+    # setup time below is a full setup, never a load from an earlier run
+    os.environ["FEMX_MG_CACHE"] = "0"
     import femx_torch
     from femx_torch import bench, build, gather
     from femx_torch.assembly_structured import StructuredSolidOperator
@@ -2724,7 +2744,8 @@ def main() -> int:
 
         log("19. the distributed paths: N ranks on the one card (femx_torch.parallel)")
         dist, dist_paths = distributed_phase(torch, femx_torch, it_flagship, R_flagship,
-                                             levels_flagship, msh_path)
+                                             levels_flagship, msh_path,
+                                             warm["peak_device_bytes"])
         paths.update(dist_paths)
 
         def by_path(key):

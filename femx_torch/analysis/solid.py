@@ -521,7 +521,8 @@ class SolidReactionAnalysis:
         sharded TG operator with the distributed lattice MG on an
         unstructured mesh (femx_torch.parallel.tg_lattice), on every rank of
         the group; each rank ends with the full u and the reactions, r = K u
-        through the single-device float64 operator. Returns False, with
+        through the float64 operator of the solve (structured: the solver's
+        padded one). Returns False, with
         femx's log line, when the problem cannot be slab-distributed: solve()
         then takes the single-device route and solve_info["devices"] is 1.
         float32 analyses run float64 CG on the float64-assembled operator
@@ -549,11 +550,10 @@ class SolidReactionAnalysis:
                                     checkpoint_chunk=self.checkpoint_chunk,
                                     checkpoint_maxiter=self.CHECKPOINT_MAXITER)
             op = self.operator.with_free_mask(m_int)
-            op64 = op if dtype == np.float64 else StructuredSolidOperator.from_mesh(
-                self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
-                device=self.device, apply_form=self.structured_apply).with_free_mask(m_int)
+            op64 = op if dtype == np.float64 else None  # float32: built if modal refines
             self._precond = StructuredBlockJacobi(op)
             dinfo["structured_apply"] = "conv" if conv_routing_active(op) else "slot"
+            reactions = solver.reactions(u)
         else:
             if not isinstance(self.operator, SolidOperatorTG):
                 self._log("   - devices= requested but the generic operator is in use; "
@@ -584,12 +584,13 @@ class SolidReactionAnalysis:
                     dtype=np.float64, device=self.device)
                 op64 = op64.with_free_mask(m_int)
             self._precond = BlockJacobiPrecond(op.soa.block_jacobi_tensors())
+            u_int = torch.as_tensor(op.to_internal(np.asarray(u)), device=self.device)
+            reactions = op.to_global(op64.apply(u_int).cpu().numpy())
         self.operator, self._op64, self._dist_solver = op, op64, solver
         dinfo["solve_s"] = round(time.perf_counter() - t0, 3)
         self.solve_info = dinfo
         self.u = np.asarray(u)
-        u_int = torch.as_tensor(op.to_internal(self.u), device=self.device)
-        self.reaction_forces = op.to_global(op64.apply(u_int).cpu().numpy())
+        self.reaction_forces = reactions
         self._log(f"   - System solved on {dinfo['devices']} devices ({dinfo['method']}, "
                   f"{dinfo['iterations']} iterations).")
         return True
@@ -764,7 +765,7 @@ class SolidReactionAnalysis:
                     return pcg(op.apply_constrained, b, M_inv_diag=pre, tol=inner_tol,
                                maxiter=4000)
             elif torch_dtype(op.dtype) == torch.float32:
-                op64 = self._op64
+                op64 = self._float64_operator()
 
                 def ks_acc(b):
                     return pcg_mixed(op64.apply_constrained, b, pre, tol=1e-9, maxiter=6000)
@@ -807,6 +808,16 @@ class SolidReactionAnalysis:
             self._log(f"   - Distributed modal unavailable ({e}); single-device inner solves.")
             return None
 
+    def _float64_operator(self):
+        """The float64 operator of the solve; a float32 structured devices=N
+        solve kept none unpadded, so it is assembled here at first need."""
+        if self._op64 is None:
+            self._op64 = StructuredSolidOperator.from_mesh(
+                self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
+                device=self.device, apply_form=self.structured_apply).with_free_mask(
+                    self.operator.free_mask_host)
+        return self._op64
+
     def _halo_accurate_solve(self, dmg):
         """refine=True's accurate solves on the ranks: float64 operators
         pcg_halo to 1e-11; float32 ones float64 CG to 1e-9 on the halo apply
@@ -816,7 +827,8 @@ class SolidReactionAnalysis:
         from femx_torch.solve.cg import CGResult
 
         if self.operator.dtype == np.float32:
-            halo, tol, low = HaloStructuredOperator(self._op64), 1e-9, torch.float32
+            halo, tol, low = (HaloStructuredOperator(self._float64_operator()), 1e-9,
+                              torch.float32)
         else:
             halo, tol, low = dmg.halo, 1e-11, None
 

@@ -498,10 +498,6 @@ def main(argv=None) -> int:
     return 2
 
 
-if __name__ == "__main__":
-    sys.exit(main())
-
-
 def _solid_rank(argv) -> int:
     """One rank of `solid --devices N`: the same analysis on every rank;
     rank 0 prints and writes the report and viewer outputs."""
@@ -572,3 +568,7 @@ def _run_solid(args, device, lead: bool = True) -> int:
         out = fa.export_html(args.html)
         print(f"Saved interactive viewer to {out}")
     return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

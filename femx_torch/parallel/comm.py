@@ -18,7 +18,7 @@ of its own, ``gloo`` on the CPU or when the ranks outnumber the CUDA
 devices (NCCL refuses two ranks on one GPU). gloo takes CUDA tensors for
 all_reduce, all_gather and broadcast, but its send/recv hand a raw device
 pointer to TCP, so no collective here uses send/recv; reduce_scatter is
-an all_reduce and a slice under gloo.
+an all_reduce and a slice under both backends.
 
 ``launch(fn, nprocs, *args)`` spawns the ranks (the "spawn" start method,
 since the parent may hold CUDA), rendezvouses through a ``file://`` store
@@ -208,10 +208,6 @@ def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return t.clone()
     chunk = t.shape[0] // n
-    if backend() == "nccl":
-        out = torch.empty((chunk,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-        dist.reduce_scatter_tensor(out, t.contiguous())
-        return out
     s = t.clone()
     dist.all_reduce(s)
     r = rank()

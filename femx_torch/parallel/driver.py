@@ -130,6 +130,16 @@ class DistributedStructuredSolver:
         u_p = self.op_p.to_global(x_int)
         return unpad_z_raster(u_p, self.grid_old, self.grid_new), info
 
+    def reactions(self, u_global) -> np.ndarray:
+        """K u on the unpadded lattice, in global raster DOF order, through
+        the padded float64 operator (the ghost cells have z weight 0 and
+        add nothing), on every rank."""
+        u_p = pad_z_raster(np.asarray(u_global, dtype=np.float64), self.grid_old,
+                           self.grid_new)
+        u_int = torch.as_tensor(self.op64.to_internal(u_p), device=self.op64.device)
+        r_p = self.op64.to_global(self.op64.apply(u_int).cpu().numpy())
+        return unpad_z_raster(r_p, self.grid_old, self.grid_new)
+
     def _solve_checkpointed(self, b, shape, tol, path, chunk, maxiter):
         halo = self.halo
         arrays, meta = ckpt.load_state(path)

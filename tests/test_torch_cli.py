@@ -227,3 +227,20 @@ print("EXIT", code, loaded)
     assert lines[-1] == "EXIT 0 []", p.stdout + p.stderr
     payload = json.loads(lines[-2])
     assert payload["critical_speeds_rpm"][0] == pytest.approx(1187.8, rel=1e-3)
+
+
+def test_cli_module_as_script_solid():
+    """`python -m femx_torch.cli solid`, on one device and on two ranks,
+    prints the reactions of the in-process run to 1e-9 of the load."""
+    box = ["solid", "--box", "0.2", "0.2", "0.4", "--mesh-size", "0.05", "--E", "2e11",
+           "--nu", "0.3", "--force", "0,-100,0@0.1,0.1,0.4", "--fix", "0,0,0:xyz",
+           "--fix", "0.2,0,0:xyz", "--fix", "0,0.2,0:xyz", "--fix", "0.2,0.2,0:xyz"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    outs = []
+    for extra in ([], ["--devices", "2"]):
+        p = subprocess.run([sys.executable, "-m", "femx_torch.cli", *CPU, *box, *extra],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+        assert p.returncode == 0, p.stdout + p.stderr
+        outs.append(p.stdout)
+    assert "System solved on 2 devices" in outs[1]
+    _assert_same_reactions(outs[0], outs[1], 100.0)

@@ -6,8 +6,9 @@ Held: u and reactions (1e-9 of their largest entry), padded_nz,
 distributed_levels and iterations (equal), solve_cases (1e-9), modal with
 refine (frequencies 1e-6); ghost padding (nz=6 on 2 ranks -> 8); the
 conv-form apply on the slabs; femx's logged fallback on an odd lattice
-(solve_info["devices"] then 1); the float32 route against femx's float64
-answer (1e-8) and equilibrium (1e-6 |F|); a checkpointed run cut and
+(solve_info["devices"] then 1); the float32 route, unpadded and padded,
+against femx's float64 u and reactions (1e-8), equilibrium (1e-6 |F|) and
+refined frequencies (1e-6); a checkpointed run cut and
 resumed (the iterations of one uncut run), and femx's x-only checkpoint
 resumed; the CLI's printed reactions (to their printed digits); the dry
 run's summary line in femx's format.
@@ -122,14 +123,35 @@ def test_structured_devices_fallback_on_odd_lattice(capfd):
     _close(got["u"], fa.u, 1e-9)
 
 
-def test_structured_devices_float32_holds_femx_float64_answer():
-    cells = (4, 4, 8)
-    got = _port(cells, kwargs=dict(dtype=np.float32))
+def _float32_against_femx_float64(cells, padded_nz):
+    """The float32 devices=2 route, then modal(refine=True), against
+    femx's float64 answer: u and reactions 1e-8, equilibrium 1e-6 |F|,
+    refined frequencies 1e-6."""
+    forces, fixes = _case(cells)
+    mesh = femx_torch.box_tet10_from_cells(cells, (H, H, H))
+    got = launch(rank_checks.solid_analysis, 2, mesh, forces, fixes,
+                 dict(E=2e11, v=0.3, cg_tol=1e-10, devices=2, device="cpu", dtype=np.float32),
+                 None, dict(n_modes=3, tol=1e-8, refine=True), device="cpu", timeout=TIMEOUT)
     ref = _femx(cells, dtype=np.float64).run_simulation()
     info = got["solve_info"]
     assert info["method"] == "distributed_halo_mg_pcg[2xz]_mixed" and info["converged"]
+    assert info["padded_nz"] == padded_nz
     _close(got["u"], ref.u, 1e-8)
+    _close(got["reactions"], ref.reaction_forces, 1e-8)
     assert np.abs(got["equilibrium"]).max() <= 1e-6 * 500.0
+    m = ref.modal(n_modes=3, tol=1e-8, refine=True)
+    np.testing.assert_allclose(got["omega"], np.asarray(m.omega), rtol=1e-6)
+
+
+def test_structured_devices_float32_holds_femx_float64_answer():
+    _float32_against_femx_float64((4, 4, 8), 8)
+
+
+def test_structured_devices_float32_padded_holds_femx_float64_answer():
+    """nz=6 on 2 ranks: the reactions through the solver's padded float64
+    operator; modal's inner solves on one device (no unpadded slabs), its
+    refinement on the float64 operator assembled at first need."""
+    _float32_against_femx_float64((4, 4, 6), 8)
 
 
 def test_structured_devices_checkpoint_cut_and_resumed(tmp_path):
