@@ -61,7 +61,6 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -83,6 +82,7 @@ from femx_torch.elements.tet10 import material_matrix
 from femx_torch.mesh.core import Mesh, nodes_in_physical_group
 from femx_torch.mesh.msh_io import read_msh
 from femx_torch.modal import ModalResult, modal_shift_invert, shift_invert_refine
+from femx_torch.profiling import span, timed
 from femx_torch.solve.cg import pcg, pcg_mixed
 from femx_torch.solve.dense import solve_dense
 from femx_torch.solve.lattice_precond import LatticePreconditioner
@@ -211,16 +211,17 @@ class SolidReactionAnalysis:
 
     def _read_mesh(self) -> None:
         self._log("1. Reading mesh file...")
-        t0 = time.perf_counter()
-        self.mesh = self.msh_file if isinstance(self.msh_file, Mesh) else read_msh(self.msh_file)
-        self.points = self.mesh.points
-        self.num_nodes = len(self.points)
-        self.tetra10_conn = self.mesh.cells.get("tetra10")
-        if self.tetra10_conn is None:
-            raise ValueError("Mesh has no 'tetra10' elements.")
-        self.diri_nodes = nodes_in_physical_group(self.mesh, "Diri_BCs", "vertex")
-        self.neumann_nodes = nodes_in_physical_group(self.mesh, "Neumann_BCs", "vertex")
-        self.stage_times["read_mesh"] = time.perf_counter() - t0
+        with timed("solid.read_mesh", self.device) as t:
+            self.mesh = (self.msh_file if isinstance(self.msh_file, Mesh)
+                         else read_msh(self.msh_file))
+            self.points = self.mesh.points
+            self.num_nodes = len(self.points)
+            self.tetra10_conn = self.mesh.cells.get("tetra10")
+            if self.tetra10_conn is None:
+                raise ValueError("Mesh has no 'tetra10' elements.")
+            self.diri_nodes = nodes_in_physical_group(self.mesh, "Diri_BCs", "vertex")
+            self.neumann_nodes = nodes_in_physical_group(self.mesh, "Neumann_BCs", "vertex")
+        self.stage_times["read_mesh"] = t.seconds
         self._log(f"   - Nodes: {self.num_nodes}, Tetra10 Elements: {len(self.tetra10_conn)}")
 
     @property
@@ -236,7 +237,12 @@ class SolidReactionAnalysis:
         transpose-gather operator in the analysis dtype (femx's); small ones
         the generic float64 operator."""
         self._log("2. Assembling global stiffness operator (matrix-free)...")
-        t0 = time.perf_counter()
+        with timed("solid.assemble", self.device) as t:
+            self._assemble()
+        self.stage_times["assemble"] = t.seconds
+        self._log("   - Assembly complete.")
+
+    def _assemble(self) -> None:
         dtype = np.dtype(self.dtype or numpy_dtype(default_dtype()))
         self._structured = self.mesh.structured is not None and self.solver != "dense"
         if self._structured:
@@ -253,8 +259,6 @@ class SolidReactionAnalysis:
                     dtype=np.float64, device=self.device)
             self.operator = op
             self.negative_detJ_count = int((detJ <= 1e-12).sum())
-        self.stage_times["assemble"] = time.perf_counter() - t0
-        self._log("   - Assembly complete.")
 
     def _assemble_unstructured(self, dtype: np.dtype):
         """The large-mesh operator by unstructured_operator (femx/analysis/
@@ -287,7 +291,11 @@ class SolidReactionAnalysis:
 
     def apply_boundary_conditions(self) -> None:
         self._log("3. Applying point-based boundary conditions...")
-        t0 = time.perf_counter()
+        with timed("solid.bc", self.device) as t:
+            self._apply_bc()
+        self.stage_times["bc"] = t.seconds
+
+    def _apply_bc(self) -> None:
         cs = bc_mod.solid_point_constraints(self.mesh, self.fix_data, self.diri_nodes)
         self.constraints = cs
         self.fixed_dofs = cs.fixed_dofs
@@ -300,23 +308,31 @@ class SolidReactionAnalysis:
         for info in self.applied_forces_info:
             self._log(f"     - Applied force {info['force_vec']} N to node {info['node_idx']}.")
         self.active_dofs = cs.free_dofs
-        self.stage_times["bc"] = time.perf_counter() - t0
 
     def solve(self) -> None:
         self._log("4. Solving the linear system...")
-        t0 = time.perf_counter()
-        if (self.devices or 0) > 1 and self._solve_distributed(t0):
-            self.stage_times["solve"] = time.perf_counter() - t0
-            return
+        with timed("solid.solve", self.device) as t:
+            t_out = self._solve()
+        self.stage_times["solve"] = t.seconds
+        if t_out is not None:
+            self.solve_info["solve_s"] = round(t.seconds - t_out, 3)
+
+    def _solve(self) -> Optional[float]:
+        """The route's solve; returns the seconds of the stage that solve_s
+        leaves out (the preconditioner set-up; on the unstructured routes the
+        reactions too; 0 for devices=N), or None for the small-mesh routes,
+        whose solve_info has no solve_s."""
+        if (self.devices or 0) > 1 and self._solve_distributed():
+            return 0.0
         if not self._structured:
+            t_pre = None
             if isinstance(self.operator, _INTERNAL_OPS):
-                self._solve_unstructured(t0)
+                t_pre = self._solve_unstructured()
             else:
                 self._solve_small()
             self._single_device_after_fallback()
             self._log("   - System solved.")
-            self.stage_times["solve"] = time.perf_counter() - t0
-            return
+            return t_pre
         ndof = 3 * self.num_nodes
         info = self.mesh.structured
         dtype = self.operator.dtype
@@ -329,57 +345,59 @@ class SolidReactionAnalysis:
         # on block-Jacobi (MG level setup doesn't pay off).
         use_mg = self.solver == "mg" or (
             self.solver == "auto" and ndof > self.MG_DOF_THRESHOLD)
-        t_pre = time.perf_counter()
-        precond = None
-        if use_mg:
-            try:
-                precond = StructuredMultigrid(
-                    None, info.n_cells, self.E, self.v, mask_g,
-                    weight=self.weight, dtype=dtype.type, fine_op=op,
-                    spacing=info.spacing,
-                    smoother=os.environ.get("FEMX_MG_SMOOTHER", "jacobi"),
-                    device=dev)
-                method = "structured_multigrid_pcg"
-            except ValueError as e:
-                # e.g. the hierarchy bottoms out too large (odd anisotropic
-                # cell counts) — block-Jacobi PCG still solves correctly
-                self._log(f"   - Multigrid unavailable ({e}); "
-                          "falling back to block-Jacobi PCG.")
-        if precond is None:
-            precond = StructuredBlockJacobi(op)
-            method = "structured_block_jacobi_pcg"
-        self.operator = op
-        self._precond = precond
-        f_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=dev)  # f64
-        t_pre = time.perf_counter() - t_pre
+        with timed("solid.precond_setup", dev) as pre:
+            precond = None
+            if use_mg:
+                try:
+                    precond = StructuredMultigrid(
+                        None, info.n_cells, self.E, self.v, mask_g,
+                        weight=self.weight, dtype=dtype.type, fine_op=op,
+                        spacing=info.spacing,
+                        smoother=os.environ.get("FEMX_MG_SMOOTHER", "jacobi"),
+                        device=dev)
+                    method = "structured_multigrid_pcg"
+                except ValueError as e:
+                    # e.g. the hierarchy bottoms out too large (odd anisotropic
+                    # cell counts) — block-Jacobi PCG still solves correctly
+                    self._log(f"   - Multigrid unavailable ({e}); "
+                              "falling back to block-Jacobi PCG.")
+            if precond is None:
+                precond = StructuredBlockJacobi(op)
+                method = "structured_block_jacobi_pcg"
+            self.operator = op
+            self._precond = precond
+            f_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=dev)  # f64
 
-        if dtype == np.float32:
-            # f64 CG on the f64-assembled operator, preconditioned in f32.
-            # femx runs f32 CG with f64 refinement against the f32 cell
-            # matrix cast up; that matrix no longer annihilates rigid
-            # translations exactly, and on point-supported boxes the
-            # solution and the reactions' equilibrium move by percents
-            # (tests/test_torch_solid.py measures both schemes).
-            op64 = StructuredSolidOperator.from_mesh(
-                self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
-                device=dev, apply_form=self.structured_apply).with_free_mask(m_int)
-            method += "_mixed"
-        else:
-            op64 = op
+        with span("solid.op64"):
+            if dtype == np.float32:
+                # f64 CG on the f64-assembled operator, preconditioned in f32.
+                # femx runs f32 CG with f64 refinement against the f32 cell
+                # matrix cast up; that matrix no longer annihilates rigid
+                # translations exactly, and on point-supported boxes the
+                # solution and the reactions' equilibrium move by percents
+                # (tests/test_torch_solid.py measures both schemes).
+                op64 = StructuredSolidOperator.from_mesh(
+                    self.mesh, self.E, self.v, weight=self.weight, dtype=np.float64,
+                    device=dev, apply_form=self.structured_apply).with_free_mask(m_int)
+                method += "_mixed"
+            else:
+                op64 = op
         self._op64 = op64
-        res, resumed = self._run_cg(op64, f_int, precond, mixed=dtype == np.float32)
+        with span("solid.cg"):
+            res, resumed = self._run_cg(op64, f_int, precond, mixed=dtype == np.float32)
         u_int = res.x  # float64 in both branches
-        r_int = op64.apply(u_int)  # reactions r = K u, unconstrained K
-        u_host = u_int.cpu().numpy()
-        r_host = r_int.cpu().numpy()
-        self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
+        with span("solid.reactions"):
+            r_int = op64.apply(u_int)  # reactions r = K u, unconstrained K
+            u_host = u_int.cpu().numpy()
+            r_host = r_int.cpu().numpy()
+        self.solve_info = self._solve_info(method, res, resumed, pre.seconds)
         # the form that ran (the request is gated by size and layer weights)
         self.solve_info["structured_apply"] = "conv" if conv_routing_active(op) else "slot"
         self._single_device_after_fallback()
         self.u = op.to_global(u_host)
         self._log("   - System solved.")
         self.reaction_forces = op.to_global(r_host)
-        self.stage_times["solve"] = time.perf_counter() - t0
+        return pre.seconds
 
     def _run_cg(self, op64, f, precond, mixed: bool):
         """The CG of the matrix-free routes: float64 CG on op64, with the
@@ -405,14 +423,16 @@ class SolidReactionAnalysis:
             solve_chunk=lambda fv, x0, r0, p0: run(fv, self.checkpoint_chunk, x0, r0, p0))
         return res, resumed
 
-    def _solve_info(self, method, res, resumed, t0, t_pre) -> dict:
+    def _solve_info(self, method, res, resumed, t_pre) -> dict:
+        """solve()'s record; solve() adds solve_s, the solve stage less the
+        preconditioner set-up t_pre (and on the unstructured routes less the
+        reactions), once the stage has ended."""
         info = {
             "method": method if resumed is None else method + "_checkpointed",
             "iterations": int(res.iterations),
             "residual": float(res.residual_norm),
             "converged": bool(res.converged),
             "precond_setup_s": round(t_pre, 3),
-            "solve_s": round(time.perf_counter() - t0 - t_pre, 3),
             # requested form: on the unstructured routes it reaches only the
             # lattice preconditioner's structured levels, each gated
             "structured_apply": self.structured_apply,
@@ -421,12 +441,14 @@ class SolidReactionAnalysis:
             info.update(checkpoint=self.checkpoint, resumed_iterations=resumed)
         return info
 
-    def _solve_unstructured(self, t0: float) -> None:
+    def _solve_unstructured(self) -> float:
         """The unstructured matrix-free routes (femx/analysis/solid.py:
         640-767): TG, group-ELL or cluster, with block-Jacobi PCG, or the
         lattice-MG preconditioner above MG_DOF_THRESHOLD DOFs; float32 runs
         float64 CG on the operator of the same kind assembled in float64,
-        preconditioned in float32, as the structured route does."""
+        preconditioned in float32, as the structured route does. Returns the
+        seconds of the preconditioner set-up and the reactions, which
+        solve_s leaves out."""
         mask_g = self.constraints.free_mask()
         m_int = self.operator.to_internal(mask_g)
         op = self.operator.with_free_mask(m_int)
@@ -434,53 +456,57 @@ class SolidReactionAnalysis:
         tag = ("groupell" if isinstance(op, SolidOperatorGroupELL) else
                "cluster" if isinstance(op, SolidOperatorCluster) else "tg")
         f64_int = torch.as_tensor(op.to_internal(self.f * mask_g), device=self.device)
-        t_pre = time.perf_counter()
-        if tag == "tg":
-            bj_data, bj_fn = op.soa.block_jacobi_tensors(), SolidOperatorSoA.apply_block_jacobi
-        else:
-            bj_data, bj_fn = op.block_jacobi_tensors(), type(op).apply_block_jacobi
-        precond = None
-        prefix = f"{tag}_block_jacobi"
-        if 3 * self.num_nodes > self.MG_DOF_THRESHOLD:
-            # auxiliary structured-lattice MG coarse correction: cuts
-            # block-Jacobi's O(1000) iterations by an order of magnitude
-            try:
-                precond = LatticePreconditioner(
-                    self.points, self.tetra10_conn, self.E, self.v, mask_g,
-                    dtype=numpy_dtype(op.dtype).type, node_perm=op.new_of_old,
-                    bj_fn=bj_fn, bj_data=bj_data, n_caller=getattr(op, "n_pad", None),
-                    device=self.device, structured_apply=self.structured_apply)
-                prefix = f"{tag}_lattice_mg"
-            except ValueError as e:
-                self._log(f"   - Lattice preconditioner unavailable ({e}); "
-                          "using block-Jacobi.")
-        if precond is None:
-            precond = (BlockJacobiPrecond(bj_data) if tag == "tg"
-                       else functools.partial(bj_fn, bj_data))
-        self._precond = precond
-        t_pre = time.perf_counter() - t_pre
+        with timed("solid.precond_setup", self.device) as pre:
+            if tag == "tg":
+                bj_data = op.soa.block_jacobi_tensors()
+                bj_fn = SolidOperatorSoA.apply_block_jacobi
+            else:
+                bj_data, bj_fn = op.block_jacobi_tensors(), type(op).apply_block_jacobi
+            precond = None
+            prefix = f"{tag}_block_jacobi"
+            if 3 * self.num_nodes > self.MG_DOF_THRESHOLD:
+                # auxiliary structured-lattice MG coarse correction: cuts
+                # block-Jacobi's O(1000) iterations by an order of magnitude
+                try:
+                    precond = LatticePreconditioner(
+                        self.points, self.tetra10_conn, self.E, self.v, mask_g,
+                        dtype=numpy_dtype(op.dtype).type, node_perm=op.new_of_old,
+                        bj_fn=bj_fn, bj_data=bj_data, n_caller=getattr(op, "n_pad", None),
+                        device=self.device, structured_apply=self.structured_apply)
+                    prefix = f"{tag}_lattice_mg"
+                except ValueError as e:
+                    self._log(f"   - Lattice preconditioner unavailable ({e}); "
+                              "using block-Jacobi.")
+            if precond is None:
+                precond = (BlockJacobiPrecond(bj_data) if tag == "tg"
+                           else functools.partial(bj_fn, bj_data))
+            self._precond = precond
         mixed = op.dtype == torch.float32
-        if not mixed:
-            op64 = op
-        elif tag == "tg":
-            # f64 CG on the TG operator assembled in f64 from the mesh,
-            # preconditioned in f32. femx refines against op.astype(float64)
-            # (femx/analysis/solid.py:722), whose f32-rounded geometry factors
-            # move the solution off the f64 operator's equilibrium
-            # (tests/test_torch_f32_witness.py).
-            op64, _ = SolidOperatorTG.from_mesh(
-                self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
-                dtype=np.float64, device=self.device)
-            op64 = op64.with_free_mask(m_int)
-        else:
-            # the float64 build the float32 operator was cast from
-            op64 = self._assembled64.with_free_mask(m_int)
+        with span("solid.op64"):
+            if not mixed:
+                op64 = op
+            elif tag == "tg":
+                # f64 CG on the TG operator assembled in f64 from the mesh,
+                # preconditioned in f32. femx refines against op.astype(float64)
+                # (femx/analysis/solid.py:722), whose f32-rounded geometry factors
+                # move the solution off the f64 operator's equilibrium
+                # (tests/test_torch_f32_witness.py).
+                op64, _ = SolidOperatorTG.from_mesh(
+                    self.points, self.tetra10_conn, self.E, self.v, weight=self.weight,
+                    dtype=np.float64, device=self.device)
+                op64 = op64.with_free_mask(m_int)
+            else:
+                # the float64 build the float32 operator was cast from
+                op64 = self._assembled64.with_free_mask(m_int)
         self._op64 = op64
-        res, resumed = self._run_cg(op64, f64_int, precond, mixed)
+        with span("solid.cg"):
+            res, resumed = self._run_cg(op64, f64_int, precond, mixed)
         method = prefix + ("_pcg_mixed" if mixed else "_pcg")
-        self.solve_info = self._solve_info(method, res, resumed, t0, t_pre)
-        self.u = op.to_global(res.x.cpu().numpy())
-        self.reaction_forces = op.to_global(op64.apply(res.x).cpu().numpy())
+        self.solve_info = self._solve_info(method, res, resumed, pre.seconds)
+        with timed("solid.reactions") as reac:  # ends on its host copies
+            self.u = op.to_global(res.x.cpu().numpy())
+            self.reaction_forces = op.to_global(op64.apply(res.x).cpu().numpy())
+        return pre.seconds + reac.seconds
 
     def _solve_small(self) -> None:
         """The generic-operator route (femx/analysis/solid.py:769-796):
@@ -515,7 +541,7 @@ class SolidReactionAnalysis:
         if (self.devices or 0) > 1:
             self.solve_info["devices"] = 1
 
-    def _solve_distributed(self, t0: float) -> bool:
+    def _solve_distributed(self) -> bool:
         """devices=N (femx/analysis/solid.py:798-830, 958-1050): the z-slab
         halo MG-PCG on a structured box (femx_torch.parallel.driver), or the
         sharded TG operator with the distributed lattice MG on an
@@ -587,7 +613,6 @@ class SolidReactionAnalysis:
             u_int = torch.as_tensor(op.to_internal(np.asarray(u)), device=self.device)
             reactions = op.to_global(op64.apply(u_int).cpu().numpy())
         self.operator, self._op64, self._dist_solver = op, op64, solver
-        dinfo["solve_s"] = round(time.perf_counter() - t0, 3)
         self.solve_info = dinfo
         self.u = np.asarray(u)
         self.reaction_forces = reactions
@@ -640,13 +665,17 @@ class SolidReactionAnalysis:
         pre, maxiter = self._stored_precond()
         us, infos = [], []
         for case in force_cases:
-            fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
-            f = torch.as_tensor(to_int(fg), dtype=torch.float64, device=self.device)
-            if mixed:
-                r = pcg_mixed(self._op64.apply_constrained, f, pre, tol=t, maxiter=maxiter)
-            else:
-                r = pcg(op.apply_constrained, f, M_inv_diag=pre, tol=t, maxiter=maxiter)
-            us.append(to_glob(r.x.cpu().numpy()))
+            with span("solid.case"):
+                fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
+                f = torch.as_tensor(to_int(fg), dtype=torch.float64, device=self.device)
+                with span("solid.cg"):
+                    if mixed:
+                        r = pcg_mixed(self._op64.apply_constrained, f, pre, tol=t,
+                                      maxiter=maxiter)
+                    else:
+                        r = pcg(op.apply_constrained, f, M_inv_diag=pre, tol=t,
+                                maxiter=maxiter)
+                us.append(to_glob(r.x.cpu().numpy()))
             infos.append({"iterations": int(r.iterations), "residual": float(r.residual_norm),
                           "converged": bool(r.residual_norm <= t)})
         self.case_solve_info = infos
@@ -905,12 +934,13 @@ class SolidReactionAnalysis:
 
     def run_simulation(self, report: bool = False, report_path: str = "FEM_Report.md"):
         """Full pipeline (reference: ReactionSolver.py:226-232)."""
-        self.assemble_stiffness_matrix()
-        self.apply_boundary_conditions()
-        self.solve()
-        self.print_reactions()
-        if report:
-            self.generate_report(report_path)
+        with span("solid.run_simulation"):
+            self.assemble_stiffness_matrix()
+            self.apply_boundary_conditions()
+            self.solve()
+            self.print_reactions()
+            if report:
+                self.generate_report(report_path)
         return self
 
     def generate_report(self, filename: str = "FEM_Report.md") -> None:

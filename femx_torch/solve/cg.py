@@ -11,6 +11,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from femx_torch.profiling import count, span
+
 
 class CGResult(NamedTuple):
     x: torch.Tensor  # solution
@@ -65,33 +67,38 @@ def pcg(
     atol2 = (tol * bnorm_safe) ** 2
 
     if r0 is None:
-        r = b - A(x)
-        z = Minv(r)
-        p = z
+        with span("cg.apply"):
+            r = b - A(x)
     else:
         r = r0.clone()
+    with span("cg.precond"):
         z = Minv(r)
-        p = p0.clone()
+    p = z if r0 is None else p0.clone()
     rz = torch.dot(r, z)
     k = 0
     while k < maxiter:
         rr = torch.dot(r, r)
         go = torch.isfinite(rr) & (rz > 0) & (rr > atol2)
-        if not bool(go):  # the one host read per iteration
+        with span("cg.wait"):
+            stop = not bool(go)  # the one host read per iteration
+        if stop:
             break
-        Ap = A(p)
+        with span("cg.apply"):
+            Ap = A(p)
         pAp = torch.dot(p, Ap)
         pos = pAp > 0
         alpha = torch.where(pos, rz / torch.where(pos, pAp, torch.ones_like(pAp)),
                             torch.zeros_like(pAp))
         x = x + alpha * p
         r = r + (-alpha) * Ap
-        z = Minv(r)
+        with span("cg.precond"):
+            z = Minv(r)
         rz_new = torch.dot(r, z)
         beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta * p
         rz = rz_new
         k += 1
+    count("cg.iterations", k)
     res = float(torch.sqrt(torch.dot(r, r)) / bnorm_safe)
     return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol, r=r, p=p)
 

@@ -34,6 +34,7 @@ import torch
 from femx_torch.assembly_structured import StructuredSolidOperator
 from femx_torch.config import resolve_device, torch_dtype
 from femx_torch.gather import index_tensor, take_rows
+from femx_torch.profiling import span
 from femx_torch.solve.multigrid import StructuredMultigrid
 
 
@@ -446,24 +447,30 @@ class LatticePreconditioner:
     # -- application ---------------------------------------------------------
     def coarse_correct(self, r: torch.Tensor) -> torch.Tensor:
         """P Mg P^T r (caller layout in and out, constrained both sides)."""
-        rl = self.transfer.restrict(r * self._mask_cal) * self._lat_mask
+        with span("lattice.transfer"):
+            rl = self.transfer.restrict(r * self._mask_cal) * self._lat_mask
         el = self.mg(rl) * self._lat_mask
         Al = self.mg.fine_op.apply_constrained
         for _ in range(self.n_cycles - 1):  # extra V-cycles on the lattice residual
             el = el + self.mg((rl - Al(el)) * self._lat_mask) * self._lat_mask
-        return self.transfer.interpolate(el, self.n_cal) * self._mask_cal
+        with span("lattice.transfer"):
+            return self.transfer.interpolate(el, self.n_cal) * self._mask_cal
+
+    def _bj(self, r: torch.Tensor) -> torch.Tensor:
+        with span("lattice.bj"):
+            return self.bj_fn(self.bj_data, r)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         if self.mode == "add":
-            return self.bj_fn(self.bj_data, r) + self.coarse_weight * self.coarse_correct(r)
+            return self._bj(r) + self.coarse_weight * self.coarse_correct(r)
         A = self.op.apply_constrained
         om = 1.0 if self.omega is None else self.omega
         if self.mode == "mult":
             z = self.coarse_correct(r)
-            return z + om * self.bj_fn(self.bj_data, r - A(z))
-        z = om * self.bj_fn(self.bj_data, r)
+            return z + om * self._bj(r - A(z))
+        z = om * self._bj(r)
         z = z + self.coarse_correct(r - A(z))
-        return z + om * self.bj_fn(self.bj_data, r - A(z))
+        return z + om * self._bj(r - A(z))
 
     def launches_per_call(self) -> dict:
         """Kernel launches of one call, by kernel: take_rows (the transfers,

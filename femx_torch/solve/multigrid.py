@@ -31,6 +31,7 @@ import torch
 from femx_torch.assembly_structured import (
     _SLOTS, StructuredSolidOperator, _cell_stiffness)
 from femx_torch.config import resolve_device
+from femx_torch.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -462,18 +463,19 @@ class StructuredMultigrid:
         Kp = K[np.ix_(perm, perm)]
         m = cop.free_mask_host.astype(np.float64)
         Kp = Kp * m[:, None] * m[None, :] + np.diag(1.0 - m)
-        if Kp.shape[0] <= 2000:
-            np.linalg.cholesky(Kp)  # definiteness check (raises on indefinite)
-            Kinv = np.linalg.solve(Kp, np.eye(Kp.shape[0], dtype=Kp.dtype))
-        else:  # LAPACK potrf + potri, ~3x cheaper than an LU solve here
-            try:
-                L = torch.linalg.cholesky(torch.from_numpy(Kp))
-            except RuntimeError as e:
-                raise np.linalg.LinAlgError(
-                    f"coarse matrix not positive definite: {e}") from e
-            Kinv = torch.cholesky_inverse(L).numpy()
-        Kinv = 0.5 * (Kinv + Kinv.T)
-        self._coarse_inv = torch.as_tensor(Kinv.astype(dtype), device=dev)
+        with span("mg.coarse_factor"):
+            if Kp.shape[0] <= 2000:
+                np.linalg.cholesky(Kp)  # definiteness check (raises on indefinite)
+                Kinv = np.linalg.solve(Kp, np.eye(Kp.shape[0], dtype=Kp.dtype))
+            else:  # LAPACK potrf + potri, ~3x cheaper than an LU solve here
+                try:
+                    L = torch.linalg.cholesky(torch.from_numpy(Kp))
+                except RuntimeError as e:
+                    raise np.linalg.LinAlgError(
+                        f"coarse matrix not positive definite: {e}") from e
+                Kinv = torch.cholesky_inverse(L).numpy()
+            Kinv = 0.5 * (Kinv + Kinv.T)
+            self._coarse_inv = torch.as_tensor(Kinv.astype(dtype), device=dev)
 
         payload = {"n_levels": np.int64(len(specs)), "level_cells": level_cells,
                    "omegas": np.asarray(self.omegas, dtype=np.float64),
@@ -549,11 +551,16 @@ class StructuredMultigrid:
         return self._smooth(k, x, b, sweeps)
 
     def _vcycle(self, k: int, b: torch.Tensor) -> torch.Tensor:
+        with span("mg.level", level=k):
+            return self._level(k, b)
+
+    def _level(self, k: int, b: torch.Tensor) -> torch.Tensor:
         lvl = self.levels[k]
         if k == len(self.levels) - 1:
-            return self._coarse_solve(b)
-        x = self._presmooth(k, b, self.n_smooth)
-        r = b - lvl.op.apply_constrained(x)
+            with span("mg.coarse_solve"):
+                return self._coarse_solve(b)
+        with span("mg.smooth"):
+            x = self._presmooth(k, b, self.n_smooth)
         nxt = self.levels[k + 1]
         axes = self._coarsen_axes[k]
         # ghost padding (odd axes): zero-embed the residual before
@@ -562,22 +569,26 @@ class StructuredMultigrid:
         # pairs are exact adjoints
         pad = self._pad_nodes[k]
         crop = self._crop_nodes if k == 0 else (0, 0, 0)
-        r_full = _join_full(lvl.op, r)
         Px, Py, Pz = lvl.op.grid_shape
         rx, ry, rz = Px - crop[0], Py - crop[1], Pz - crop[2]
-        if any(crop):
-            r_full = r_full[:, :rx, :ry, :rz]
-        if any(pad):
-            r_full = _pad_end(r_full, pad)
-        r_coarse = _split_full(nxt.op, restrict(r_full, axes)) * nxt.op.free_mask
+        with span("mg.restrict"):
+            r = b - lvl.op.apply_constrained(x)
+            r_full = _join_full(lvl.op, r)
+            if any(crop):
+                r_full = r_full[:, :rx, :ry, :rz]
+            if any(pad):
+                r_full = _pad_end(r_full, pad)
+            r_coarse = _split_full(nxt.op, restrict(r_full, axes)) * nxt.op.free_mask
         e_coarse = self._vcycle(k + 1, r_coarse)
-        e_full = prolong(_join_full(nxt.op, e_coarse), axes)
-        if any(pad):
-            e_full = e_full[:, :rx, :ry, :rz]
-        if any(crop):
-            e_full = _pad_end(e_full, crop)
-        x = x + _split_full(lvl.op, e_full) * lvl.op.free_mask
-        return self._postsmooth(k, x, b, self.n_smooth)
+        with span("mg.prolong"):
+            e_full = prolong(_join_full(nxt.op, e_coarse), axes)
+            if any(pad):
+                e_full = e_full[:, :rx, :ry, :rz]
+            if any(crop):
+                e_full = _pad_end(e_full, crop)
+            x = x + _split_full(lvl.op, e_full) * lvl.op.free_mask
+        with span("mg.smooth"):
+            return self._postsmooth(k, x, b, self.n_smooth)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         """M^-1 r (internal layout of the finest operator)."""

@@ -8,7 +8,6 @@ femx's float64 answers, 1e-6), checkpoint/resume
 (save/load, chunked CG, resume after a kill, and a checkpoint written by
 each package resumed by the other), and the profiling helpers."""
 
-import collections
 import os
 
 import numpy as np
@@ -24,7 +23,7 @@ import femx_torch.checkpoint as pt_ckpt
 from femx.elements import tet10 as fx_tet10
 from femx_torch.elements import tet10 as pt_tet10
 from femx_torch.mesh import relabel_nodes, write_msh
-from femx_torch.profiling import profile_trace, reset_stages, stage, stage_report, timeit
+from femx_torch.profiling import collect, disable, enable, profile_trace, timed, timeit
 from femx_torch.solve.cg import pcg
 
 torch.set_num_threads(2)
@@ -373,15 +372,22 @@ def test_tg_route_checkpoints(tmp_path, small_file):
 
 # -- profiling ---------------------------------------------------------------------
 def test_stage_timers():
-    reg = collections.defaultdict(list)
+    """The stage timer is the recorder's timed span: it times itself with
+    tracing off and records nothing; with tracing on it is also a span."""
     for _ in range(2):
-        with stage("work", registry=reg):
+        with timed("work", "cpu") as t:
             sum(range(1000))
-    rep = stage_report(reg)
-    assert rep["work"]["calls"] == 2
-    assert rep["work"]["total_s"] > 0
-    reset_stages(reg)
-    assert stage_report(reg) == {}
+        assert t.seconds > 0
+    assert collect()["spans"] == []
+    enable()
+    try:
+        with timed("work", "cpu") as t:
+            sum(range(1000))
+        rec = collect()
+    finally:
+        disable()
+    (s,) = rec["spans"]
+    assert s["name"] == "work" and t.seconds == (s["end_ns"] - s["start_ns"]) * 1e-9
 
 
 def test_timeit_waits_for_the_output():
