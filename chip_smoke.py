@@ -144,12 +144,24 @@ Phases (any failure ends the run with a nonzero exit code):
                 u, solve_cases and modal(3, refine=True) against the
                 single-device run; (g) `python -m femx_torch solid --devices
                 2` on that box, its printed reactions against (f)'s run.
+ 20. V-cycle graph — at phase 6's hierarchy (24x24x96) and the benchmark's
+                box1m-struct one (64x16x64, 1,647,459 DOF): five calls of
+                StructuredMultigrid (eager, captured, replayed) against the
+                eager V-cycle bit for bit; the pool its graph reserves against
+                what an eager V-cycle of the same work reserves on a stream
+                of its own; eager and replayed ms a call; slot_copy_in and
+                slot_copy_out against Tensor.copy_ at both sizes, float32 and
+                float64, aligned and one element off, exactly, and timed at
+                box1m's (with slot_set) beside the library and the bytes bound.
 13(b)'s stress check holds every entry's card-against-CPU difference to
 STRESS_ROUNDING_STEPS eps times the sum of its terms' magnitudes (the two
 runs sum in other orders; the card alone is checked run to run).
 Phases 5-8, 10-19 each set the kernel launch counts to 0 just before
 each path's first run, read them just after and check them against the
-count its iteration counts imply. The run sets FEMX_MG_CACHE=0: the multigrid disk cache is off, so every
+count its iteration counts imply; the counts are host launches, so a
+StructuredMultigrid's V-cycle counts its eager first call and its capture
+as a CUDA graph, and each replay one slot_set (`vcycle_launches`). The run
+sets FEMX_MG_CACHE=0: the multigrid disk cache is off, so every
 hierarchy setup it times is a full setup. The .msh file of phase 8 (read again
 in 14(b)) is written under build/chip_smoke/ and deleted at the end, as
 is phase 17's directory there.
@@ -160,6 +172,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -275,6 +288,36 @@ def counted(torch, fn):
 
 
 SCM = "structured_cell_matmul"
+
+
+def vcycle_state(mg) -> int:
+    """Where StructuredMultigrid `mg` stands on its CUDA-graph route: 0
+    before its first call on the card, 1 after it, 2 once its V-cycle is
+    captured."""
+    g = mg._graph
+    return 0 if g is None else 2 if g.captured else 1
+
+
+def vcycle_launches(per_vcycle, calls, state=0, dtype="float32"):
+    """Host launches of `calls` calls of a StructuredMultigrid in `state`
+    (vcycle_state) whose V-cycle launches `per_vcycle` cell kernels: its
+    first call runs eagerly; its second captures the V-cycle (the capture's
+    launches counted once, with one slot_copy_in and one slot_copy_out) and
+    replays it; every call from the second on replays it, one slot_set each,
+    and a replay launches nothing else from the host."""
+    eager = min(calls, 1) if state == 0 else 0
+    capture = int(state < 2 and calls > eager)
+    return {f"{SCM}/{dtype}": per_vcycle * (eager + capture), "slot_set": calls - eager,
+            f"slot_copy_in/{dtype}": capture, f"slot_copy_out/{dtype}": capture}
+
+
+def add_launches(*counts) -> dict:
+    """The sum of launch-count dicts, zero counts left out (launch_counts
+    leaves them out)."""
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return {k: v for k, v in out.items() if v}
 
 
 HIERARCHY = [FLAGSHIP, (12, 12, 48), (6, 6, 24), (3, 3, 12)]  # the flagship V-cycle's levels
@@ -476,12 +519,12 @@ def flagship_case(torch, femx_torch, warm_runs=3):
     check(np.all(np.isfinite(fa.u)) and fa.u.shape == (ndof,), "bad u")
     check(np.linalg.norm(eq) <= 1e-6 * fnorm, f"equilibrium {eq}")
     # launch accounting: f64 CG applies K once up front, once per iteration
-    # and once for the reactions; each f32 V-cycle (up front and per
-    # iteration) runs 5 applies (2+2 sweeps + residual) on every level above
-    # the coarsest
+    # and once for the reactions; the f32 V-cycle (up front and per
+    # iteration, a new hierarchy) runs 5 applies (2+2 sweeps + residual) on
+    # every level above the coarsest
     it = info["iterations"]
-    want = {f"{SCM}/float64": it + 2,
-            f"{SCM}/float32": 5 * (len(fa._precond.levels) - 1) * (it + 1)}
+    want = add_launches({f"{SCM}/float64": it + 2},
+                        vcycle_launches(5 * (len(fa._precond.levels) - 1), it + 1))
     log(f"   launch check: {it} iterations -> expect {want}, got {launches}")
     check(launches == want, "launch count mismatch")
 
@@ -523,18 +566,22 @@ def bench_flow(torch, bench):
     # and runs one V-cycle up front and one per iteration, each of 5 applies
     # on every level above the coarsest
     per_vcycle = 5 * (len(mg.levels) - 1)
+    state = vcycle_state(mg)
     launches_f32, t_first, res = counted(torch, solve)
-    want = {f"{SCM}/float32": (1 + per_vcycle) * (res.iterations + 1)}
+    want = add_launches({f"{SCM}/float32": res.iterations + 1},
+                        vcycle_launches(per_vcycle, res.iterations + 1, state))
     log(f"   launch check f32 solve: expect {want}, got {launches_f32}")
     check(launches_f32 == want, "bench f32 launch count mismatch")
     runs = [wall_s(solve) for _ in range(3)]
     res = runs[-1][1]
     t_f32 = statistics.median(t for t, _ in runs)
     # pcg_refined: 1 + passes pcg calls in f32, 1 + passes f64 residuals
+    state = vcycle_state(mg)
     launches_ref, _, rr = counted(torch, solve_refined)
     passes = launches_ref.get(f"{SCM}/float64", 0) - 1
-    want = {f"{SCM}/float32": (1 + per_vcycle) * (rr.iterations + passes + 1),
-            f"{SCM}/float64": passes + 1}
+    calls = rr.iterations + passes + 1
+    want = add_launches({f"{SCM}/float32": calls, f"{SCM}/float64": passes + 1},
+                        vcycle_launches(per_vcycle, calls, state))
     log(f"   launch check refined solve: {passes} passes -> expect {want}, "
         f"got {launches_ref}")
     check(0 <= passes <= 6 and launches_ref == want, "bench refined launch count mismatch")
@@ -609,11 +656,11 @@ def unstructured_flagship(torch, femx_torch, R_struct, warm_runs=1):
     g = fa.operator.gathers_per_apply
     # f64 CG (pcg_mixed): the f64 TG operator applied once up front, once per
     # iteration and once for the reactions; the f32 lattice preconditioner
-    # (its transfer gathers, 2 V-cycles and 1 lattice apply) called once up
-    # front and once per iteration
-    want = {"take_rows/float64": (it + 2) * g,
-            "take_rows/float32": (it + 1) * per["take_rows"],
-            f"{SCM}/float32": (it + 1) * per[SCM]}
+    # (its transfer gathers, 2 V-cycles of a new hierarchy and 1 lattice
+    # apply) called once up front and once per iteration
+    want = add_launches({"take_rows/float64": (it + 2) * g,
+                         "take_rows/float32": (it + 1) * per["take_rows"]},
+                        lattice_launches(lp, it + 1))
     log(f"   lattice {lp.n_cells} cells, levels {[lv.op.n_cells for lv in lp.mg.levels]}, "
         f"transfer {type(lp.transfer).__name__}; per apply {g} take_rows, per "
         f"preconditioner call {per}")
@@ -723,6 +770,16 @@ def tg_kernel_rows(torch, fa, mem_tb):
     return rows
 
 
+def lattice_launches(lp, calls, state=0) -> dict:
+    """The cell kernel's host launches of `calls` calls of lattice
+    preconditioner `lp` whose hierarchy was in `state` (vcycle_state): its
+    n_cycles V-cycles a call, and the lattice applies between them."""
+    vc = 5 * (len(lp.mg.levels) - 1)
+    applies = lp.launches_per_call()[SCM] - lp.n_cycles * vc
+    return add_launches({f"{SCM}/float32": calls * applies},
+                        vcycle_launches(vc, lp.n_cycles * calls, state))
+
+
 def unstructured_bench(torch, bench, problem, kind, runs_n=3):
     """Phases 10 and 14(a): bench.py:223-308 through femx_torch.bench with the
     operator `kind` ("tg", "groupell" or "cluster") — face-clamped,
@@ -738,11 +795,13 @@ def unstructured_bench(torch, bench, problem, kind, runs_n=3):
     def solve():
         return bench.unstructured_solve(ub)
 
+    state = vcycle_state(ub.lp.mg)
     launches, t_first, res = counted(torch, solve)
     per = ub.lp.launches_per_call()
     it = res.iterations
-    want = {"take_rows/float32": (it + 1) * (ub.op.gathers_per_apply + per["take_rows"]),
-            f"{SCM}/float32": (it + 1) * per[SCM]}
+    want = add_launches(
+        {"take_rows/float32": (it + 1) * (ub.op.gathers_per_apply + per["take_rows"])},
+        lattice_launches(ub.lp, it + 1, state))
     log(f"   {kind}: {ub.op.gathers_per_apply} take_rows per apply, per preconditioner call "
         f"{per}; launch check: {it} iterations -> expect {want}, got {launches}")
     check(launches == want, f"unstructured bench ({kind}) launch count mismatch")
@@ -965,9 +1024,11 @@ def bench_modal(torch, bench, sb):
         return bench.lanczos(sb)
 
     torch.cuda.reset_peak_memory_stats()
+    state = vcycle_state(sb.mg)
     launches, t_first, mres = counted(torch, lanczos)
     inner = mres.inner_iterations
-    want = {f"{SCM}/float32": pcg_launches(inner, 1, per_vcycle)}
+    want = add_launches({f"{SCM}/float32": pcg_launches(inner)},
+                        vcycle_launches(per_vcycle, pcg_launches(inner, 0, 1), state))
     log(f"   Lanczos: {mres.iterations} inner MG-PCG solves of {inner} iterations; "
         f"launch check: expect {want}, got {launches}")
     check(len(inner) == mres.iterations and launches == want, "Lanczos launch count mismatch")
@@ -982,12 +1043,14 @@ def bench_modal(torch, bench, sb):
     check(np.all(rel3 <= 1e-2), "Lanczos f1-f3 off BENCH_r05's by more than 1e-2")
 
     solves = []
+    state = vcycle_state(sb.mg)
     launches_r, t_ref, (om_ref, eta, _) = counted(
         torch, lambda: bench.refine_modes(sb, mres, solves))
     # pcg_refined: 1 + passes f32 pcg calls and as many f64 residuals
     calls = launches_r.get(f"{SCM}/float64", 0)
-    want = {f"{SCM}/float32": (1 + per_vcycle) * (sum(i for i, _ in solves) + calls),
-            f"{SCM}/float64": calls}
+    vcycles = sum(i for i, _ in solves) + calls
+    want = add_launches({f"{SCM}/float32": vcycles, f"{SCM}/float64": calls},
+                        vcycle_launches(per_vcycle, vcycles, state))
     log(f"   refinement: {len(solves)} accurate solves, {calls} pcg calls, true residuals "
         f"max {max(r for _, r in solves):.3e}; launch check: expect {want}, got {launches_r}")
     check(len(solves) == 20 and 20 <= calls <= 20 * 7 and launches_r == want,
@@ -1055,9 +1118,12 @@ def analysis_extras(torch, femx_torch, fa):
 
     per_vcycle = 5 * (len(fa._precond.levels) - 1)
     out = {}
+    state = vcycle_state(fa._precond)
     launches, t_modal, res = counted(torch, lambda: fa.modal(n_modes=ANALYSIS_MODES, rho=RHO))
     info = fa.modal_info
-    want = {f"{SCM}/float32": pcg_launches(info["inner_iterations"], 1, per_vcycle)}
+    inner = info["inner_iterations"]
+    want = add_launches({f"{SCM}/float32": pcg_launches(inner)},
+                        vcycle_launches(per_vcycle, pcg_launches(inner, 0, 1), state))
     f_hz = res.omega.cpu().numpy() / (2 * np.pi)
     V = res.modes.double()
     mass = torch.as_tensor(fa.operator.to_global(fa._lumped_mass(RHO)), device=DEVICE)
@@ -1113,10 +1179,12 @@ def analysis_extras(torch, femx_torch, fa):
     f0 = fa.force_data
     f1 = [{"force_x": 700.0, "force_y": 0.0, "force_z": 300.0, "force_x_pstn": 0.4,
            "force_y_pstn": 0.4, "force_z_pstn": 0.8}]
+    state = vcycle_state(fa._precond)
     launches, t_cases, U = counted(torch, lambda: fa.solve_cases([f0, f1, f0 + f1]))
     its = [c["iterations"] for c in fa.case_solve_info]
     # as solve(): f64 CG on the f64 operator, the f32 V-cycle as preconditioner
-    want = {f"{SCM}/float64": pcg_launches(its), f"{SCM}/float32": pcg_launches(its, 0, per_vcycle)}
+    want = add_launches({f"{SCM}/float64": pcg_launches(its)},
+                        vcycle_launches(per_vcycle, pcg_launches(its, 0, 1), state))
     r0, r2 = rel_diff(U[0], fa.u), rel_diff(U[2], U[0] + U[1])
     log(f"   solve_cases (3 cases): {t_cases:.6f} s, iterations {its}, residuals "
         f"{[c['residual'] for c in fa.case_solve_info]}; |U0 - u| rel {r0:.3e}, "
@@ -1263,9 +1331,9 @@ def block_operator_flagships(torch, femx_torch, path, R_struct):
         # as phase 8: the f64 operator once up front, once per iteration and
         # once for the reactions; the f32 lattice MG once up front and once
         # per iteration
-        want = {"take_rows/float64": (it + 2) * g,
-                "take_rows/float32": (it + 1) * per["take_rows"],
-                f"{SCM}/float32": (it + 1) * per[SCM]}
+        want = add_launches({"take_rows/float64": (it + 2) * g,
+                             "take_rows/float32": (it + 1) * per["take_rows"]},
+                            lattice_launches(fa._precond, it + 1))
         log(f"   launch check: {it} iterations, {g} take_rows per apply -> expect {want}, "
             f"got {launches}")
         check(launches == want, f"{kind} flagship launch count mismatch")
@@ -1937,7 +2005,8 @@ def cli_flagship(torch, femx_torch, R_flagship, out_dir):
     check(fa.device.type == "cuda", f"the CLI ran on {fa.device}")
     check(info["method"] == "structured_multigrid_pcg" and info["converged"], str(info))
     it, levels = info["iterations"], len(fa._precond.levels)
-    want = {f"{SCM}/float64": it + 2 + 5 * (levels - 1) * (it + 1)}
+    want = add_launches({f"{SCM}/float64": it + 2},
+                        vcycle_launches(5 * (levels - 1), it + 1, dtype="float64"))
     log(f"   cli.main {secs:.3f} s; solve_info {info}")
     log(f"   stage_times {json.dumps(fa.stage_times)}; host {json.dumps(fa.host_times)}")
     log(f"   launch check: {it} iterations, {levels} levels -> expect {want}, got {launches}")
@@ -2219,7 +2288,7 @@ def flagship_conv(torch, femx_torch, it6, R_flagship, warm6, warm_runs=3):
     check(abs(it - it6) <= 1, f"{it} iterations against phase 6's {it6}")
     # the f64 CG operator and the fine V-cycle level apply by convolution;
     # the levels below the fine one and above the coarsest launch the kernel
-    want = {k: v for k, v in {f"{SCM}/float32": 5 * (levels - 2) * (it + 1)}.items() if v}
+    want = add_launches(vcycle_launches(5 * (levels - 2), it + 1))
     log(f"   launch check: expect {want}, got {launches}")
     check(launches == want, "conv flagship launch count mismatch")
     R = corner_reactions(fa)
@@ -2575,6 +2644,160 @@ def distributed_phase(torch, femx_torch, it_flagship, R_flagship, n_levels, msh_
     return out, paths
 
 
+# -- phase 20: the V-cycle's CUDA graph at full size ---------------------------
+# (box dimensions in m, cells): phase 6's flagship and the benchmark's
+# box1m-struct configuration (benchmark/configs/box1m-struct.json)
+GRAPH_HIERARCHIES = {"flagship": ((0.4, 0.4, 1.6), FLAGSHIP),
+                     "box1m": ((0.8, 0.2, 0.8), (64, 16, 64))}
+
+
+def pool_bytes(torch, pool):
+    """What the allocator reserves for the memory pool of id `pool`."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+def eager_need(torch, multigrid, mg, r):
+    """The bytes an eager V-cycle on a copy of r makes the allocator reserve
+    on a new stream (whose requests no cached block serves, and which makes
+    its own cuBLAS workspace, as the capture stream does): what the capture
+    records, run eagerly. The stream's blocks and workspace are given back
+    after."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    with torch.cuda.stream(side):
+        x = torch.empty_like(r)
+        x.copy_(r)
+        y = mg._vcycle(0, x).contiguous()
+        del x, y
+    torch.cuda.synchronize()
+    need = torch.cuda.memory_reserved() - before
+    multigrid._clear_cublas_workspaces()
+    torch.cuda.empty_cache()
+    return need
+
+
+def slot_rows(torch, n, mem_tb):
+    """slot_copy_in and slot_copy_out at n float32 elements (the fine level's
+    residual) against Tensor.copy_, aligned and one element off, and
+    slot_set against a 16-byte copy from the host: CUDA-event ms of 10
+    calls in a row, the device time of a replayed graph of them, and the
+    bytes bound 2 n sizeof(float) / the card's bandwidth."""
+    g = np.random.default_rng(21)
+    slots = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    buf = torch.empty(n, dtype=torch.float32, device=DEVICE)
+    src = torch.as_tensor(g.standard_normal(n + 1).astype(np.float32), device=DEVICE)
+    dst = torch.empty(n + 1, dtype=torch.float32, device=DEVICE)
+    nb = 2 * n * 4
+    rows = {}
+    for kernel, lib_call, lib in (
+            ("slot_copy_in", "buf.copy_(src)", lambda s, d: buf.copy_(s)),
+            ("slot_copy_out", "dst.copy_(buf)", lambda s, d: d.copy_(buf))):
+        fn = getattr(GATHER, kernel)
+        row = dict(bytes=nb, bound_ms=nb / (mem_tb * 1e12) * 1e3, bound_by="bytes",
+                   shape=f"{n} float32", library_call=lib_call)
+        for off, tag in ((0, ""), (1, "offset1_")):
+            s, d = src[off:off + n], dst[off:off + n]
+            GATHER.slot_set(slots, s.data_ptr(), d.data_ptr())
+            row[f"{tag}ms"] = cuda_ms(lambda: fn(slots, buf))
+            row[f"{tag}library_ms"] = cuda_ms(lambda: lib(s, d))
+            row[f"{tag}graph_device_ms"] = graph_device_ms(torch, lambda: fn(slots, buf))
+            row[f"{tag}library_graph_device_ms"] = graph_device_ms(torch, lambda: lib(s, d))
+        row["bound_share"] = row["bound_ms"] / row["graph_device_ms"]
+        row["no_slower_than_library"] = row["graph_device_ms"] <= row["library_graph_device_ms"]
+        rows[kernel] = row
+    pair = torch.tensor([src.data_ptr(), dst.data_ptr()], dtype=torch.int64)
+    rows["slot_set"] = dict(
+        ms=cuda_ms(lambda: GATHER.slot_set(slots, src.data_ptr(), dst.data_ptr())),
+        graph_device_ms=graph_device_ms(
+            torch, lambda: GATHER.slot_set(slots, src.data_ptr(), dst.data_ptr())),
+        library_ms=cuda_ms(lambda: slots.copy_(pair)), library_call="slots.copy_(host pair)",
+        host_us_per_call={
+            "slot_set": host_us(torch, lambda: GATHER.slot_set(slots, src.data_ptr(),
+                                                                dst.data_ptr())),
+            "slots.copy_": host_us(torch, lambda: slots.copy_(pair), calls=500)},
+        bytes=16, bound_by="launch")
+    for k, row in rows.items():
+        log(f"   timing {k}: {json.dumps(row)}")
+    return rows
+
+
+def vcycle_graph_phase(torch, mem_tb):
+    """Phase 20: at phase 6's and the benchmark's box1m hierarchies, five
+    calls of StructuredMultigrid (eager, captured and replayed, replayed)
+    against the eager V-cycle on the same residuals, bit for bit; the pool
+    its graph reserves (one of its own here) against what an eager V-cycle
+    of the same work reserves on a stream of its own; eager and replayed ms
+    a call. Then the slot
+    copies at both fine levels' sizes, float32 and float64, aligned and one
+    element off, against Tensor.copy_ exactly, and their timing at box1m's
+    (slot_rows)."""
+    from femx_torch.solve import multigrid
+    from femx_torch.solve.multigrid import StructuredMultigrid
+
+    rng = np.random.default_rng(20)
+    idx = torch.cuda.current_device()
+    out, sizes = {}, []
+    for label, (dims, cells) in GRAPH_HIERARCHIES.items():
+        ny, nz = 2 * cells[1] + 1, 2 * cells[2] + 1
+        ndof = 3 * (2 * cells[0] + 1) * ny * nz
+        mask = np.ones(ndof)
+        mask[:3 * ny * nz] = 0  # clamped at x = 0
+        t_setup, mg = wall_s(lambda: StructuredMultigrid(dims, cells, E, NU, mask,
+                                                         device=DEVICE))
+        check(mg.fine_op.ndof == ndof, f"{label}: {mg.fine_op.ndof} DOF, not {ndof}")
+        sizes.append(ndof)
+        rs = [torch.as_tensor(rng.standard_normal(ndof).astype(np.float32), device=DEVICE)
+              for _ in range(5)]
+        saved = multigrid._CAPTURE.pop(idx, None)  # a pool of this hierarchy's own
+        try:
+            got = [mg(r) for r in rs]
+            want = [mg._vcycle(0, r) for r in rs]
+            torch.cuda.synchronize()
+            check(vcycle_state(mg) == 2, f"{label}: the V-cycle was not captured")
+            equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+            check(all(equal), f"{label}: replayed V-cycles differ from the eager ones: {equal}")
+            graph_pool = pool_bytes(torch, multigrid._capture_place(torch.device(DEVICE))[1])
+            need = eager_need(torch, multigrid, mg, rs[0])
+            check(graph_pool <= need, f"{label}: the graph's pool reserves {graph_pool} B, an "
+                  f"eager V-cycle {need} B")
+            rec = dict(cells=list(cells), dof=ndof, levels=len(mg.levels), setup_s=t_setup,
+                       bitwise_equal_calls=len(equal), graph_pool_bytes=graph_pool,
+                       eager_need_bytes=need,
+                       eager_ms=cuda_ms(lambda: mg._vcycle(0, rs[0]), reps=5, inner=5),
+                       replay_ms=cuda_ms(lambda: mg(rs[0]), reps=5, inner=5))
+            log(f"   {label}: {json.dumps(rec)}")
+            out[label] = rec
+            del got, want, mg
+        finally:
+            multigrid._CAPTURE.pop(idx, None)
+            if saved is not None:
+                multigrid._CAPTURE[idx] = saved
+    slots = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    for n in sizes:
+        for dt in (torch.float32, torch.float64):
+            for off in (0, 1):
+                src = torch.randn(n + off, dtype=dt, device=DEVICE)
+                dst = torch.full((n + off,), float("nan"), dtype=dt, device=DEVICE)
+                buf, ref = torch.empty(n, dtype=dt, device=DEVICE), torch.empty(n, dtype=dt,
+                                                                               device=DEVICE)
+                GATHER.slot_set(slots, src[off:].data_ptr(), dst[off:].data_ptr())
+                GATHER.slot_copy_in(slots, buf)
+                buf2 = buf * 1.0
+                GATHER.slot_copy_out(slots, buf2)
+                ref.copy_(src[off:])
+                torch.cuda.synchronize()
+                check(torch.equal(buf, ref) and torch.equal(dst[off:], ref)
+                      and bool(dst[:off].isnan().all()),
+                      f"slot copies differ from Tensor.copy_ at {n} {dt}, offset {off}")
+    log(f"   slot copies equal Tensor.copy_ at {sizes} elements, float32 and float64, "
+        f"offsets 0 and 1")
+    out["slot_rows"] = slot_rows(torch, sizes[-1], mem_tb)
+    return out
+
+
 def main() -> int:
     global CM, GATHER
     import torch
@@ -2748,6 +2971,9 @@ def main() -> int:
                                              warm["peak_device_bytes"])
         paths.update(dist_paths)
 
+        log("20. the V-cycle's CUDA graph at the flagship's and box1m's hierarchies")
+        vgraph = vcycle_graph_phase(torch, peaks[2])
+
         def by_path(key):
             return {p: int(c.get(key, 0)) for p, c in paths.items()}
 
@@ -2788,6 +3014,16 @@ def main() -> int:
             "also_replaces": [f"{mosaic_src}:{n}" for n in (63, 86, 107, 128)],
             "path": "examples", "launches": int(paths["examples"].get("row_copy/float32", 0)),
             **ex_rows["row_copy"], "launches_by_path": by_path("row_copy/float32")})
+        for kernel, key in (("slot_copy_in", "slot_copy_in/float32"),
+                            ("slot_copy_out", "slot_copy_out/float32"), ("slot_set", "slot_set")):
+            kernels.append({
+                "name": f"{kernel}_f32" if kernel != "slot_set" else kernel,
+                "dtype": "float32" if kernel != "slot_set" else "int64", "route": "cuda",
+                "source": "femx_torch/csrc/slot_copy.cu",
+                "replaces": "none: the input, output and addresses of the V-cycle's CUDA graph "
+                            "(femx_torch/solve/multigrid.py)",
+                "path": "flagship", "launches": int(paths["flagship"].get(key, 0)),
+                **vgraph["slot_rows"][kernel], "launches_by_path": by_path(key)})
         for k in kernels:
             check(k["launches"] > 0, f"{k['name']} was not launched on its path ({k['path']})")
         log("end-to-end: " + json.dumps({
@@ -2847,7 +3083,8 @@ def main() -> int:
             "reports": reports, "cli_subprocess_s": {k: v["s"] for k, v in subs.items()},
             "plots_s": plots, "conv_apply": conv_rows,
             **{f"flagship_conv_{k}": v for k, v in conv_flag.items() if k != "launches"},
-            "distributed": dist}))
+            "distributed": dist,
+            "vcycle_graph": {k: v for k, v in vgraph.items() if k != "slot_rows"}}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"kernels": kernels}))

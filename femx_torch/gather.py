@@ -6,16 +6,20 @@
 - ``take_along_axis(tab, idx, axis)`` — per-element gather along one axis
   (csrc/take_along_axis.cu), launched as ``plan_take_along`` plans it;
 - ``row_copy(x, row0, n_rows, scale)`` — scaled copy of a run of rows that
-  starts at a device-held row (csrc/row_copy.cu).
+  starts at a device-held row (csrc/row_copy.cu);
+- ``slot_set``, ``slot_copy_in``, ``slot_copy_out`` — copies between a
+  buffer and the caller's vector at an address held on the device
+  (csrc/slot_copy.cu): the input and output of a replayed CUDA graph.
 
-They are the counterparts of the Pallas gather and lowering repros of
-femx's examples/ (see each source's header). On a CUDA tensor a wrapper
-launches its kernel or raises; on a CPU tensor it runs the plain version,
-which is also the kernel's reference. Indices are int32 on the card and are
+The first three are the counterparts of the Pallas gather and lowering
+repros of femx's examples/ (see each source's header). On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor it runs the plain
+version, which is also the kernel's reference (the slot copies, which move
+raw addresses, have none and raise). Indices are int32 on the card and are
 trusted by the kernels: builders check their range once on the host
 (``index_tensor``). Every launch goes through ``femx_torch.launch`` and is
-counted in ``LAUNCHES`` under "<kernel>/<dtype>", only where a kernel is
-launched.
+counted in ``LAUNCHES`` under "<kernel>/<dtype>" ("slot_set" alone), only
+where a kernel is launched from the host: a replayed graph adds nothing.
 """
 
 from __future__ import annotations
@@ -39,18 +43,27 @@ _ARGTYPES = {
     "take_rows": [_P, _P, _P, _I64, _I, _I],
     "take_along_axis": [_P, _P, _P] + [_I] * 8,
     "row_copy": [_P, _P, _P, _I64, _I64, _D],
+    "slot_set": [_P, _I64, _I64],
+    "slot_copy_in": [_P, _P, _I64],
+    "slot_copy_out": [_P, _P, _I64],
 }
+# the kernel library of each kernel whose source is not csrc/<kernel>.cu
+_LIBRARY = {"slot_set": "slot_copy", "slot_copy_in": "slot_copy", "slot_copy_out": "slot_copy"}
 _ENTRIES = {}
 
 
-def _entry(kernel: str, dtype: torch.dtype) -> launch.Entry:
+def _entry(kernel: str, dtype) -> launch.Entry:
     """The bound C entry of `kernel` for `dtype`, counted under
-    "<kernel>/<dtype>" (built and bound at first use)."""
+    "<kernel>/<dtype>"; with dtype None, femx_<kernel> counted under
+    "<kernel>" (built and bound at first use)."""
     key = (kernel, dtype)
     if key not in _ENTRIES:
-        suffix = "f32" if dtype == torch.float32 else "f64"
-        _ENTRIES[key] = launch.bind(kernel, f"femx_{kernel}_{suffix}", _ARGTYPES[kernel],
-                                    LAUNCHES, f"{kernel}/{str(dtype).removeprefix('torch.')}")
+        symbol, counted = f"femx_{kernel}", kernel
+        if dtype is not None:
+            symbol += "_f32" if dtype == torch.float32 else "_f64"
+            counted += f"/{str(dtype).removeprefix('torch.')}"
+        _ENTRIES[key] = launch.bind(_LIBRARY.get(kernel, kernel), symbol, _ARGTYPES[kernel],
+                                    LAUNCHES, counted)
     return _ENTRIES[key]
 
 
@@ -281,3 +294,36 @@ def row_copy(x: torch.Tensor, row0: torch.Tensor, n_rows: int,
         launch.launch(_entry("row_copy", dtype), dev, x.data_ptr(), row0.data_ptr(),
                       out.data_ptr(), n_rows, shape[1], scale)
     return out
+
+
+# -- slot copies --------------------------------------------------------------
+def _check_slots(name: str, slots: torch.Tensor, buf=None) -> None:
+    if slots.dtype != torch.int64 or tuple(slots.shape) != (2,):
+        raise ValueError(f"{name}: slots must be an int64 tensor of 2, got {slots.dtype} "
+                         f"{tuple(slots.shape)}")
+    if buf is not None:
+        _check_float(name, buf)
+    _check_cuda(name, slots, *(() if buf is None else (buf,)))
+
+
+def slot_set(slots: torch.Tensor, src: int, dst: int) -> None:
+    """slots = (src, dst), two device addresses written by a kernel on the
+    current stream: what the next slot_copy_in and slot_copy_out in stream
+    order read."""
+    _check_slots("slot_set", slots)
+    launch.launch(_entry("slot_set", None), slots.get_device(), slots.data_ptr(), src, dst)
+
+
+def slot_copy_in(slots: torch.Tensor, buf: torch.Tensor) -> None:
+    """buf = the buf.numel() elements of buf's dtype at the address in
+    slots[0]; the address is read on the card, so a captured launch reads
+    each replay's own."""
+    _check_slots("slot_copy_in", slots, buf)
+    _launch("slot_copy_in", buf, slots.data_ptr(), buf.data_ptr(), buf.numel())
+
+
+def slot_copy_out(slots: torch.Tensor, buf: torch.Tensor) -> None:
+    """The buf.numel() elements at the address in slots[1] = buf (the
+    address read on the card, as slot_copy_in's)."""
+    _check_slots("slot_copy_out", slots, buf)
+    _launch("slot_copy_out", buf, slots.data_ptr(), buf.data_ptr(), buf.numel())

@@ -16,6 +16,9 @@ be cached:
   after the launch, or the entry's own code for a plan it refuses), and
   counts the launch only when the code is 0.
 
+The counts are host launches: a launch inside a CUDA graph capture counts
+once, at the capture, and the graph's replays add none.
+
 Nothing here runs at import: a CPU build of torch has neither getter, so
 they are bound at the first launch (the CPU tests stub them).
 """

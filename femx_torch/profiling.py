@@ -34,16 +34,24 @@ The spans of the solid route (`SolidReactionAnalysis`):
                                       each case's CG
   cg.apply, cg.precond, cg.wait       A(p), M^-1 r and the stopping test's
                                       host read of each pcg iteration
-  mg.level (level=k), mg.smooth,      the V-cycle by level; mg.restrict
-  mg.restrict, mg.prolong,            holds the level's residual
-  mg.coarse_solve
+  mg.replay                           a V-cycle replayed as a CUDA graph
+                                      (the slot kernel and the replay)
+  mg.level (level=k), mg.smooth,      an eager V-cycle by level (a replay
+  mg.restrict, mg.prolong,            has none); mg.restrict holds the
+  mg.coarse_solve                     level's residual
   mg.coarse_factor                    the set-up's coarse Cholesky, inverse
                                       and upload
   lattice.bj, lattice.transfer        the lattice preconditioner's
                                       block-Jacobi and its transfers
 
-and the counter cg.iterations (pcg iterations; the benchmark's
-precond_ms divides the preconditioner's time by it).
+and the counters cg.iterations (pcg iterations; the benchmark's
+precond_ms divides the preconditioner's time by it), mg.vcycle_calls,
+mg.graph_captures and mg.graph_replays (StructuredMultigrid's calls, the
+CUDA graphs it captured and the calls that replayed one).
+
+While the current CUDA stream captures a graph, `span` and `count` do
+nothing, tracing on or off: no CUDA event or profiler range enters a graph,
+and a captured V-cycle is counted once, as a capture.
 """
 
 from __future__ import annotations
@@ -142,10 +150,20 @@ class _Span:
         return (self.end_ns - self.start_ns) * 1e-9
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False on a
+    build of torch without CUDA)."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:
+        return False
+
+
 def span(name: str, **attrs):
-    """A span around the block (a context manager); with tracing off the
-    shared no-op context."""
-    if not _ON:
+    """A span around the block (a context manager); with tracing off, or
+    while the current CUDA stream captures a graph, the shared no-op
+    context."""
+    if not _ON or _capturing():
         return _NO_SPAN
     return _Span(name, attrs, True)
 
@@ -160,8 +178,9 @@ def timed(name: str, device=None, **attrs) -> _Span:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to the counter `name` (nothing with tracing off)."""
-    if not _ON:
+    """Add n to the counter `name` (nothing with tracing off, or while the
+    current CUDA stream captures a graph)."""
+    if not _ON or _capturing():
         return
     with _LOCK:
         _COUNTS[name] += n

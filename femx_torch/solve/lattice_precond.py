@@ -476,7 +476,10 @@ class LatticePreconditioner:
         """Kernel launches of one call, by kernel: take_rows (the transfers,
         and the operator applies of the multiplicative modes) and
         structured_cell_matmul (5 per level above the coarsest per V-cycle,
-        plus one lattice apply per extra cycle)."""
+        plus one lattice apply per extra cycle). On the card the V-cycles'
+        launches come from the hierarchy's CUDA graph once it is captured,
+        so the host counts them only for its eager first call and its
+        capture."""
         n_int, n_res = self.transfer.gathers_per_call()
         op_applies = {"add": 0, "mult": 1, "mult_sym": 2}[self.mode]
         rows = n_int + n_res + op_applies * (self.op.gathers_per_apply if op_applies else 0)

@@ -15,11 +15,27 @@ Setup (cell matrices, block-Jacobi blocks, power iterations, the coarse
 inverse) runs on the host; each level's operator, block-Jacobi tensors and
 the coarse inverse then move to the device once. Restriction is exactly the
 transpose of prolongation, which keeps the V-cycle SPD for CG.
+
+On a CUDA device a hierarchy replays its V-cycle as one CUDA graph: its
+first call runs the V-cycle eagerly (which fills the caches a capture must
+not fill: the packed cell matrices, the launch plans), its second captures
+it and replays it, and every later call replays it. The graph reads the
+caller's residual and writes its result through two addresses held on the
+device (`_VcycleGraph`), so between calls it keeps 16 bytes allocated and
+no vector. Its buffers, the V-cycle's transients and a cuBLAS workspace
+live in one memory pool per device that every V-cycle graph shares
+(`_capture_place`): free between replays, but reserved for the graphs
+alone for as long as the process runs, about what one eager V-cycle of the
+largest hierarchy needs (on the H100, the 1.6M-DOF box's: PERF.md). The
+eager V-cycle and the replay launch the same kernels in the same order and
+return the same bits. The CPU, an input unlike the captured one, and a call
+inside another capture stay eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 import tempfile
@@ -28,10 +44,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from femx_torch import gather
 from femx_torch.assembly_structured import (
     _SLOTS, StructuredSolidOperator, _cell_stiffness)
 from femx_torch.config import resolve_device
-from femx_torch.profiling import span
+from femx_torch.profiling import count, span
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +246,109 @@ class _Level:
         return self.op.apply_block_jacobi(self.binv, r)
 
 
+def _graph_key(r: torch.Tensor) -> tuple:
+    """What a captured V-cycle is fixed to: the input's shape, dtype and
+    device."""
+    return tuple(r.shape), r.dtype, r.device
+
+
+def _graphable(r: torch.Tensor) -> bool:
+    """Whether a call on `r` may take the graph: a contiguous CUDA tensor,
+    outside any capture (a call inside another capture runs inline)."""
+    return r.is_cuda and r.is_contiguous() and not torch.cuda.is_current_stream_capturing()
+
+
+# device index -> (side stream, anchor graph) of the V-cycle graphs' captures
+_CAPTURE: dict = {}
+
+
+def _capture_place(device: torch.device):
+    """The side stream every V-cycle graph on `device` is captured on, and
+    the id of the memory pool they all share (made at the first capture).
+
+    One pool serves every hierarchy, so a dropped hierarchy's memory is
+    there for the next one's capture without emptying the allocator's cache
+    (a pool of each graph's own is given back only then). Sharing is safe
+    because nothing a graph allocates outlives its replay, and replays run
+    in the order of the streams they are launched on; two graphs replayed
+    on two streams at once would share memory. The pool is that of an
+    anchor graph (one fill of a tensor from outside the pool, never
+    replayed) kept for the process, so that it outlives every V-cycle graph
+    sharing it."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _CAPTURE:
+        with torch.cuda.device(idx):
+            stream, anchor = torch.cuda.Stream(), torch.cuda.CUDAGraph()
+            t = torch.zeros(1, device=torch.device("cuda", idx))
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                anchor.capture_begin()
+                try:
+                    t.zero_()
+                finally:
+                    anchor.capture_end()
+        _CAPTURE[idx] = (stream, anchor)
+    stream, anchor = _CAPTURE[idx]
+    return stream, anchor.pool()
+
+
+def _clear_cublas_workspaces() -> None:
+    """Give back cuBLAS's workspace of every stream to the allocator (each
+    stream is given a new one at its next cuBLAS call). torch has no public
+    call for it; its own graph trees use this one."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+class _VcycleGraph:
+    """One hierarchy's V-cycle as a CUDA graph, for inputs of one `key`.
+
+    `capture` records on the device's capture stream, into the shared pool
+    (`_capture_place`): slot_copy_in (the residual at the address in
+    slots[0] into a buffer of the pool), the V-cycle, and slot_copy_out (its
+    result to the address in slots[1]). `replay` writes the two addresses
+    with one kernel on the current stream, then replays there. The graph
+    goes with this object; the memory it used stays in the pool.
+
+    cuBLAS keeps a workspace for each stream it runs on (32 MiB on the
+    H100), which the coarse solve's matvec would make for the capture stream
+    and keep allocated. So the capture clears cuBLAS's workspaces before and
+    after: the capture stream's is made inside the pool and is free there
+    between replays, and while the capture runs the current stream's is
+    free, so the card holds what an eager V-cycle holds at that point (the
+    current stream makes its own again at its next cuBLAS call)."""
+
+    def __init__(self, r: torch.Tensor):
+        self.key = _graph_key(r)
+        self.graph = torch.cuda.CUDAGraph()
+        self.slots = torch.zeros(2, dtype=torch.int64, device=r.device)
+        self.captured = False
+
+    def capture(self, vcycle) -> None:
+        shape, dtype, device = self.key
+        stream, pool = _capture_place(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        _clear_cublas_workspaces()
+        try:
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    x = torch.empty(shape, dtype=dtype, device=device)
+                    gather.slot_copy_in(self.slots, x)
+                    gather.slot_copy_out(self.slots, vcycle(x).contiguous())
+                    del x
+                finally:
+                    self.graph.capture_end()
+        finally:
+            _clear_cublas_workspaces()
+        self.captured = True
+
+    def replay(self, r: torch.Tensor, out: torch.Tensor) -> None:
+        gather.slot_set(self.slots, r.data_ptr(), out.data_ptr())
+        self.graph.replay()
+
+
 def _axis_support(w, n: int) -> np.ndarray:
     """(2n+1,) 1.0 where a doubled-lattice node touches any cell of positive
     weight along this axis, else 0.0 (such nodes stay fixed: their stiffness
@@ -244,7 +364,9 @@ def _axis_support(w, n: int) -> np.ndarray:
 
 class StructuredMultigrid:
     """Symmetric V-cycle preconditioner M^-1 for CG on the structured mesh;
-    call it on a residual in the finest operator's internal layout.
+    call it on a residual in the finest operator's internal layout (on a
+    CUDA device, replayed as a CUDA graph from the second call on: the
+    module docstring).
 
     Args:
       dims: (X, Y, Z) box dimensions (used when `spacing` is None).
@@ -268,6 +390,8 @@ class StructuredMultigrid:
         block-Jacobi smooths the anisotropic semi-coarsened operators poorly.
       device: where the levels live (None = CUDA, raising without it).
     """
+
+    _graph: Optional[_VcycleGraph] = None  # made by the first CUDA call
 
     def __init__(
         self,
@@ -592,7 +716,21 @@ class StructuredMultigrid:
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         """M^-1 r (internal layout of the finest operator)."""
-        return self._vcycle(0, r)
+        count("mg.vcycle_calls")
+        g = self._graph
+        if not _graphable(r) or (g is not None and g.key != _graph_key(r)):
+            return self._vcycle(0, r)
+        if g is None:  # the warm-up: packed cell matrices, plans
+            self._graph = _VcycleGraph(r)
+            return self._vcycle(0, r)
+        if not g.captured:
+            g.capture(functools.partial(self._vcycle, 0))
+            count("mg.graph_captures")
+        out = torch.empty_like(r)
+        with span("mg.replay"):
+            g.replay(r, out)
+        count("mg.graph_replays")
+        return out
 
     @property
     def fine_op(self) -> StructuredSolidOperator:

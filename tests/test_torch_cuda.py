@@ -24,6 +24,8 @@ from femx_torch.assembly_tg import SolidOperatorTG
 from femx_torch.elements import cell_matmul as cm
 from femx_torch.examples import gather_repros, mosaic_repros
 from femx_torch.mesh import relabel_nodes, write_msh
+from femx_torch.solve import multigrid
+from femx_torch.solve.multigrid import StructuredMultigrid
 
 torch.set_num_threads(2)
 
@@ -304,6 +306,272 @@ def test_gather_kernels_replay_in_a_cuda_graph(cuda, dtype):
     _graph_matches_eager(lambda: gather.take_rows(tab3, rows))
     # warm-up, capture and eager call each launched once
     assert all(gather.LAUNCHES[f"{k}/{name}"] == v + 3 for k, v in before.items())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cell_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """The flagship's plan (24 x 24 x 96 cells), whose launch sets the
+    kernel's shared-memory attribute every time, captured and replayed."""
+    op = _op((24, 24, 96), dtype, cuda)
+    u = torch.as_tensor(np.random.default_rng(11).standard_normal(op.ndof).astype(dtype),
+                        device=cuda)
+    name = np.dtype(dtype).name
+    before = cm.LAUNCHES[name]
+    _graph_matches_eager(lambda: cm.structured_cell_matmul(u, op.Kcell, (24, 24, 96)))
+    assert cm.LAUNCHES[name] == before + 3  # warm-up, capture and eager call
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 7, 4096, 100_003])
+def test_slot_copies_read_their_addresses_on_the_card(cuda, dtype, offset, n):
+    """slot_copy_in and slot_copy_out under a graph: each replay copies from
+    and to the addresses slot_set wrote before it, aligned or not (offset
+    1 element), exactly."""
+    rng = np.random.default_rng(13)
+    slots = torch.zeros(2, dtype=torch.int64, device=cuda)
+    buf = torch.empty(n, dtype=torch.float32 if dtype == np.float32 else torch.float64,
+                      device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        gather.slot_copy_in(slots, buf)
+        buf.mul_(3.0)
+        gather.slot_copy_out(slots, buf)
+    outs = []
+    for _ in range(3):  # queued back to back: each replay reads its own pair
+        src = torch.as_tensor(rng.standard_normal(n + offset).astype(dtype), device=cuda)
+        dst = torch.full((n + offset,), float("nan"), dtype=buf.dtype, device=cuda)
+        gather.slot_set(slots, src[offset:].data_ptr(), dst[offset:].data_ptr())
+        graph.replay()
+        outs.append((src, dst))
+    torch.cuda.synchronize()
+    for src, dst in outs:
+        assert torch.equal(dst[offset:], 3.0 * src[offset:])
+        assert dst[:offset].isnan().all()
+
+
+def _small_mg(cuda, smoother="jacobi", n=(8, 8, 16)):
+    """A hierarchy of a box clamped at x = 0, on the card: three levels at
+    the default lattice, four at (16, 16, 32)."""
+    nd = 3 * int(np.prod([2 * c + 1 for c in n]))
+    mask = np.ones(nd)
+    mask[:3 * (2 * n[1] + 1) * (2 * n[2] + 1)] = 0
+    mg = StructuredMultigrid((0.4, 0.4, 0.8), n, 2e11, 0.3, mask, device=cuda,
+                             smoother=smoother)
+    assert len(mg.levels) == {(8, 8, 16): 3, (16, 16, 32): 4}[tuple(n)]
+    return mg
+
+
+def _residuals(mg, k, seed=12):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(mg.fine_op.ndof).astype(np.float32),
+                            device=mg.fine_op.device) for _ in range(k)]
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_vcycle_replay_is_the_eager_vcycle_bitwise(cuda, smoother, monkeypatch):
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    mg = _small_mg(cuda, smoother)
+    rs = _residuals(mg, 5)
+    got = [mg(r) for r in rs]  # eager; capture and replay; three replays
+    want = [mg._vcycle(0, r) for r in rs]
+    torch.cuda.synchronize()
+    assert mg._graph.captured
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_vcycle_replay_with_the_conv_apply(cuda, monkeypatch):
+    """cuDNN's convolutions (every level in conv form) under capture: the
+    replay against the eager V-cycle."""
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    monkeypatch.setenv("FEMX_CONV_MIN_CELLS", "0")
+    n, sp = (8, 8, 16), (0.05, 0.05, 0.05)
+    fine = StructuredSolidOperator.from_lattice(n, sp, 2e11, 0.3, dtype=np.float32,
+                                                device=cuda, apply_form="conv")
+    mask = np.ones(fine.ndof)
+    mask[:3 * (2 * n[1] + 1) * (2 * n[2] + 1)] = 0
+    mg = StructuredMultigrid(None, n, 2e11, 0.3, mask, spacing=sp, fine_op=fine, device=cuda)
+    before = dict(cm.LAUNCHES)
+    rs = _residuals(mg, 3)
+    got = [mg(r) for r in rs]
+    want = [mg._vcycle(0, r) for r in rs]
+    torch.cuda.synchronize()
+    assert mg._graph.captured and dict(cm.LAUNCHES) == before  # no cell kernel
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+
+
+def test_vcycle_replay_inside_the_lattice_preconditioner(cuda, monkeypatch):
+    """The mesh-file route's lattice preconditioner (two V-cycles a call,
+    both replayed) against the same preconditioner on the eager V-cycle."""
+    import copy
+
+    from femx_torch.solve.lattice_precond import LatticePreconditioner
+
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    monkeypatch.setattr(femx_torch.SolidReactionAnalysis, "MG_DOF_THRESHOLD", 1000)
+    monkeypatch.setattr(femx_torch.SolidReactionAnalysis, "DENSE_DOF_LIMIT", 1000)
+    mesh = femx_torch.box_tet10(0.4, 0.2, 0.4, 0.05, force_points=[(0.2, 0.2, 0.2)],
+                                fix_points=[(0, 0, 0), (0.4, 0, 0), (0, 0, 0.4), (0.4, 0, 0.4)])
+    mesh = relabel_nodes(mesh, np.random.default_rng(0).permutation(mesh.num_nodes))
+    force = [{"force_x": 0, "force_y": -500.0, "force_z": 0, "force_x_pstn": 0.2,
+              "force_y_pstn": 0.2, "force_z_pstn": 0.2}]
+    fix = [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
+           for x in (0, 0.4) for z in (0, 0.4)]
+    fa = femx_torch.SolidReactionAnalysis(mesh, force, fix, E=2e11, v=0.3, dtype=np.float32,
+                                          verbose=False, device=cuda)
+    fa.run_simulation()
+    pre = fa._precond
+    assert isinstance(pre, LatticePreconditioner) and pre.n_cycles == 2
+
+    class Eager:
+        def __init__(self, mg):
+            self.mg = mg
+
+        def __call__(self, r):
+            return self.mg._vcycle(0, r)
+
+        def __getattr__(self, name):
+            return getattr(self.mg, name)
+
+    eager = copy.copy(pre)
+    eager.mg = Eager(pre.mg)
+    rng = np.random.default_rng(14)
+    n = fa._op64.ndof
+    rs = [torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=cuda)
+          for _ in range(3)]
+    got = [pre(r) for r in rs]
+    want = [eager(r) for r in rs]
+    torch.cuda.synchronize()
+    assert pre.mg._graph.captured
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_vcycle_graph_keeps_no_vector_between_calls(cuda, monkeypatch):
+    """Once captured, a hierarchy holds its 16-byte address table and
+    nothing else allocated: a replayed call adds its result alone. The
+    capture leaves cuBLAS's workspaces cleared; the eager V-cycle's matvec
+    makes the current stream's again. torch keeps its random generator's
+    state (two int64 tensors) while it holds any graph: one held through the
+    test makes them before the base is read."""
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    held = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(held, stream=side):
+        torch.ones(8, device=cuda).mul_(2.0)
+    mg = _small_mg(cuda)
+    r, = _residuals(mg, 1)
+    mg._vcycle(0, r)  # the cell matrices packed, the stream's cuBLAS workspace made
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mg(r)
+    mg(r)  # eager; capture and first replay; both results dropped
+    mg._vcycle(0, r)
+    torch.cuda.synchronize()
+    assert mg._graph.captured and mg._graph.slots.numel() * 8 == 16
+    assert torch.cuda.memory_allocated() - base == 512  # the address table's block
+    before = torch.cuda.memory_allocated()
+    out = mg(r)
+    torch.cuda.synchronize()
+    block = -(-out.numel() * out.element_size() // 512) * 512
+    assert torch.cuda.memory_allocated() - before == block
+    del held
+
+
+def _pool_bytes(pool) -> int:
+    """What the allocator reserves for the memory pool of id `pool`."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _eager_need(mg, r) -> int:
+    """The bytes an eager V-cycle on a copy of r makes the allocator
+    reserve on a new stream (whose requests no cached block serves, and
+    which makes its own cuBLAS workspace, as the capture stream does): the
+    capture's work, eagerly."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    with torch.cuda.stream(side):
+        x = torch.empty_like(r)
+        x.copy_(r)
+        y = mg._vcycle(0, x).contiguous()
+        del x, y
+    torch.cuda.synchronize()
+    need = torch.cuda.memory_reserved() - before
+    multigrid._clear_cublas_workspaces()  # the side stream's
+    torch.cuda.empty_cache()
+    return need
+
+
+@pytest.mark.parametrize("n", [(8, 8, 16), (16, 16, 32)])
+def test_vcycle_graph_pool_reserves_what_an_eager_vcycle_needs(cuda, monkeypatch, n):
+    """What the graphs' shared pool reserves once a hierarchy's V-cycle is
+    captured into it is no more than an eager V-cycle of the same work
+    reserves on a stream of its own: the transients, the input's copy and
+    the second stream's cuBLAS workspace, and nothing kept beside them."""
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    monkeypatch.setattr(multigrid, "_CAPTURE", {})  # a pool of this test's own
+    mg = _small_mg(cuda, n=n)
+    r, = _residuals(mg, 1)
+    mg(r)  # eager: the caches filled
+    need = _eager_need(mg, r)
+    mg(r)  # captured and replayed
+    torch.cuda.synchronize()
+    got = _pool_bytes(multigrid._capture_place(cuda)[1])
+    assert 0 < got <= need, (got, need)
+
+
+def test_vcycle_graphs_go_with_their_hierarchies(cuda, monkeypatch):
+    """Five rounds of build, solve, drop: the memory the card reserves
+    stays flat (each capture takes the memory the dropped graphs used from
+    the shared pool) with the allocator's cache never emptied."""
+    import gc
+
+    from femx_torch.solve.cg import pcg
+
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    monkeypatch.setattr(multigrid, "_CAPTURE", {})
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: pytest.fail("cache emptied"))
+    reserved = []
+    for _ in range(5):
+        mg = _small_mg(cuda)
+        b, = _residuals(mg, 1)
+        res = pcg(mg.fine_op.apply_constrained, b * mg.fine_op.free_mask, M_inv_diag=mg,
+                  tol=1e-5, maxiter=50)
+        assert res.converged and mg._graph.captured
+        del mg, b, res
+        gc.collect()
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[1:] == [reserved[1]] * 4, reserved
+
+
+def test_vcycle_graph_counters(cuda, monkeypatch):
+    from femx_torch import profiling
+
+    monkeypatch.setenv("FEMX_MG_CACHE", "0")
+    mg = _small_mg(cuda)
+    r, = _residuals(mg, 1)
+    profiling.enable(cuda)
+    try:
+        for _ in range(6):
+            mg(r)
+        rec = profiling.collect()
+    finally:
+        profiling.disable()
+        profiling.collect()
+    assert rec["counters"] == {"mg.vcycle_calls": 6, "mg.graph_captures": 1,
+                               "mg.graph_replays": 5}
+    names = [s["name"] for s in rec["spans"]]
+    assert names.count("mg.replay") == 5 and names.count("mg.level") == len(mg.levels)
+    assert all(s["device_ns"] is not None for s in rec["spans"] if s["name"] == "mg.replay")
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

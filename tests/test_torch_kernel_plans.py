@@ -343,7 +343,9 @@ def stubbed_launch(monkeypatch):
 @pytest.mark.parametrize("kernel,dtype,symbol", [
     ("take_rows", torch.float32, "femx_take_rows_f32"),
     ("take_along_axis", torch.float64, "femx_take_along_axis_f64"),
-    ("row_copy", torch.float32, "femx_row_copy_f32")])
+    ("row_copy", torch.float32, "femx_row_copy_f32"),
+    ("slot_copy_in", torch.float32, "femx_slot_copy_in_f32"),
+    ("slot_copy_out", torch.float64, "femx_slot_copy_out_f64")])
 def test_launch_reads_the_stream_every_call_and_counts_once(stubbed_launch, kernel, dtype,
                                                             symbol):
     calls, guards, rc = stubbed_launch
@@ -362,6 +364,39 @@ def test_launch_reads_the_stream_every_call_and_counts_once(stubbed_launch, kern
         launch.launch(entry, 0, 1)
     assert gather.LAUNCHES[key] == before + 4
     gather.LAUNCHES[key] = before
+
+
+def test_slot_kernels_bind_from_one_library(stubbed_launch, monkeypatch):
+    """slot_set (no dtype), slot_copy_in and slot_copy_out are entries of
+    csrc/slot_copy.cu; slot_set counts under its bare name."""
+    libraries = []
+    bind = launch.bind
+    monkeypatch.setattr(launch, "bind", lambda library, *a: libraries.append(library)
+                        or bind(library, *a))
+    calls, _, _ = stubbed_launch
+    entry = gather._entry("slot_set", None)
+    assert entry.key == "slot_set" and entry.counter is gather.LAUNCHES
+    before = gather.LAUNCHES["slot_set"]
+    launch.launch(entry, 0, 1, 2, 3)
+    assert calls == [("femx_slot_set", (1, 2, 3, 100))]
+    assert gather.LAUNCHES["slot_set"] == before + 1
+    gather.LAUNCHES["slot_set"] = before
+    gather._entry("slot_copy_in", torch.float64)
+    gather._entry("slot_copy_out", torch.float32)
+    gather._entry("row_copy", torch.float32)
+    assert libraries == ["slot_copy"] * 3 + ["row_copy"]
+
+
+def test_slot_wrappers_refuse_cpu_tensors_and_bad_tables():
+    slots, buf = torch.zeros(2, dtype=torch.int64), torch.zeros(8)
+    for fn, args in ((gather.slot_set, (slots, 0, 0)), (gather.slot_copy_in, (slots, buf)),
+                     (gather.slot_copy_out, (slots, buf))):
+        with pytest.raises(RuntimeError, match="no slot_.* kernel for device cpu"):
+            fn(*args)
+    with pytest.raises(ValueError, match="int64 tensor of 2"):
+        gather.slot_copy_in(torch.zeros(3, dtype=torch.int64), buf)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        gather.slot_copy_out(slots, torch.zeros(8, dtype=torch.int32))
 
 
 def test_cell_matmul_launches_through_the_shared_path(stubbed_launch):
