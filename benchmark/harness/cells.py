@@ -57,6 +57,14 @@ class Run:
         self.analysis = None  # the analysis the cases run on (cases cells)
         self.probe_rhs = None  # a residual-shaped vector of that analysis
         self.take_trace = None  # sends the traced requests (set by the cell)
+        self.world = None  # the ranks of a devices=N cell (harness.ranks.World)
+        self.ranks = None  # with N ranks: one record a rank (its card, peak, span totals)
+
+    @property
+    def leads(self) -> bool:
+        """This process profiles, reads the metrics and judges: the only
+        one, or rank 0 of N."""
+        return self.world is None or self.world.leads
 
     def span(self, name: str, seconds: float) -> None:
         self.spans.setdefault(name, []).append(seconds)
@@ -109,7 +117,7 @@ class Model:
             dtype=np.dtype(s["dtype"]), cg_tol=float(s["cg_tol"]), solver=s["solver"],
             structured_apply=self.route.get("structured_apply"),
             unstructured_operator=self.route.get("unstructured_operator"),
-            verbose=False, device=self.device)
+            verbose=False, device=self.device, devices=self.config.get("devices"))
 
 
 def _points(loads):
@@ -118,6 +126,8 @@ def _points(loads):
 
 def _window(run: Run, seconds: float, stream, serve) -> None:
     """The closed loop: serve(request) until `seconds` have passed."""
+    if run.world is not None:
+        return run.world.window(run, seconds, stream, serve)
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
         req = next(stream)
@@ -146,9 +156,11 @@ def _traced(run: Run, serve, seed: int) -> None:
     run.answers.append(serve(req))
     dev_mod.sync(run.device)
     window_s = time.perf_counter() - t0
-    ans, run.profile = dev_mod.profile(lambda: serve(req), run.device)
+    profile = dev_mod.profile if run.world is None else run.world.profile
+    ans, run.profile = profile(lambda: serve(req), run.device)
     run.answers.append(ans)
-    run.profile["window_s"] = window_s
+    if run.profile is not None:
+        run.profile["window_s"] = window_s
     run.spans = spans
     run.profiled_requests = 2
 

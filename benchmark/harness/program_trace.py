@@ -16,8 +16,10 @@ A cases cell sends its request through the analysis of set-up
 (`solve_cases`); an analyses cell builds a new model (seed 0: the seed only
 draws the node order of a relabelling route) and runs `run_simulation()`.
 Neither touches `run.profile`, `run.spans` or `run.answers`, and tracing
-is off again before it returns. On a run without a card, or with a program
-that has no recorder, it is None and sends nothing.
+is off again before it returns. On the ranks of a devices=N cell past
+rank 0, pass 2 sends its request without torch.profiler. On a run without
+a card, or with a program that has no recorder, it is None and sends
+nothing.
 """
 
 from __future__ import annotations
@@ -110,13 +112,17 @@ def _take(run) -> Optional[dict]:
         dev_mod.sync(run.device)
         request_s = time.perf_counter() - t0
         rec = prof.collect()
-        info2, idle = _profiled(serve, run.device, prof)
+        if run.leads:
+            info2, idle = _profiled(serve, run.device, prof)
+        else:  # another rank of N: the same request, bare
+            info2, idle = serve(), idle_by_span([], [], (0.0, 0.0))
     finally:
         prof.disable()
         prof.collect()
     out = {"spans": rec["spans"], "counters": rec["counters"], "idle": idle,
            "info": [info, info2], "request_s": request_s}
-    _report(run, out)
+    if run.leads:
+        _report(run, out)
     return out
 
 

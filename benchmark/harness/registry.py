@@ -7,6 +7,14 @@ under the benchmark's folder:
   metrics/<metric>.py     the metric's reader; a name with a dot falls back
                           to the reader of the part before the first dot
   limits/<config>.json    the limits of the numbers `correct` compares
+  kinds/<kind>.py         a traffic `kind` that harness.cells.KINDS does not
+                          hold: `run(run, seed, seconds, t_start)`, which
+                          sets up and measures as cells.run_cases does, and
+                          `COMPARED`, the names of the numbers of
+                          reference.BoxModel.judge that `correct` compares
+
+A configuration may name `"devices": N`: the cell then runs as the N ranks
+of femx_torch's devices=N (harness/ranks.py).
 
 A later cell adds files and entries here and edits none.
 """
@@ -67,6 +75,12 @@ class Registry:
         if not path.exists():
             path = d / f"{metric.split('.', 1)[0]}.py"
         return _load(path, "bench_metric_" + path.stem.replace(".", "_").replace("-", "_"))
+
+    def kind(self, kind: str):
+        """The module of a traffic kind of its own (its `run` and
+        `COMPARED`)."""
+        return _load(self.bench_dir / "kinds" / f"{kind}.py",
+                     "bench_kind_" + kind.replace(".", "_").replace("-", "_"))
 
     def roofline(self, operator: str):
         """The module that counts `operator`'s operations and bytes."""

@@ -15,16 +15,33 @@ from harness.registry import BENCH_DIR, Registry
 COMPARED = {"cases": ["residual", "support"], "analyses": ["residual", "support", "reaction"]}
 
 
+def kind_of(reg: Registry, kind: str):
+    """(the kind's run(run, seed, seconds, t_start), the numbers its cells
+    compare): cells.KINDS's, or benchmark/kinds/<kind>.py's run and
+    COMPARED."""
+    if kind in cells.KINDS:
+        return cells.KINDS[kind], COMPARED[kind]
+    mod = reg.kind(kind)
+    return mod.run, mod.COMPARED
+
+
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
-             device: torch.device, t_start: float, bench_dir: Path = BENCH_DIR) -> dict:
+             device: torch.device, t_start: float, bench_dir: Path = BENCH_DIR,
+             world=None) -> dict:
     """Set up, measure, read the metrics, judge the answers; the result
-    line's keys, with `compared` last."""
+    line's keys, with `compared` last. With `world` (harness.ranks), this
+    process is one rank of N: every rank measures and reads alike, rank 0
+    alone judges and returns the line, the others None."""
     reg = Registry(root, bench_dir)
     w = reg.workload(workload)
     config = reg.config(w["config"])
     mix = reg.traffic(w["traffic"])
     run = cells.Run(config, mix, device, trace)
-    cells.KINDS[mix["kind"]](run, seed, seconds, t_start)
+    run.world = world
+    run_kind, compared_names = kind_of(reg, mix["kind"])
+    run_kind(run, seed, seconds, t_start)
+    if world is not None:
+        world.share_peaks(run)
 
     its = [a.info.get("iterations") for a in run.answers]
     print(f"set-up {run.setup_s:.3f} s; window {run.window_s:.3f} s, {run.attempted} requests, "
@@ -40,6 +57,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         if trace and from_trace:
             run.take_trace()
             gc.collect()
+            if world is not None:
+                world.share_spans(run)
         for m in wanted:
             if getattr(readers[m["name"]], "FROM_TRACE", False) == from_trace:
                 value = readers[m["name"]].read(run, reg, m["name"])
@@ -52,8 +71,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if not run.leads:
+        return None
     worst, ref_s, gap = check.judge(config, run.answers, device)
-    ok, compared = check.compare(worst, reg.limits(w["config"]), COMPARED[mix["kind"]])
+    ok, compared = check.compare(worst, reg.limits(w["config"]), compared_names)
     compared["failed_requests"] = {"value": run.failed, "limit": 0}
     correct = bool(ok and run.failed == 0 and run.answers)
     print(f"reference judged {len(run.answers)} answers in {ref_s:.3f} s; its residual "
@@ -62,6 +83,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": 1, "memory_peak_bytes": run.memory_peak_bytes}
+    if world is not None:
+        dev["count"] = world.cards(run)
+        dev["memory_peak_bytes_by_rank"] = [r["memory_peak_bytes"] for r in run.ranks]
     out = {"correct": correct, "attempted": run.attempted + run.profiled_requests,
            "failed": run.failed, "metrics": metrics, "device": dev}
     if trace and run.profile is not None:

@@ -13,6 +13,11 @@ metrics), device, with --trace 1 breakdown, and last `compared`, each
 number that decided `correct` beside its limit (also the last lines of
 standard error).
 
+A cell whose configuration names `"devices": N` runs as the N ranks of
+femx_torch's devices=N, started by the program's own launcher
+(harness/ranks.py); rank 0's line is printed here, and a rank that fails or
+passes its deadline ends the run nonzero with no result.
+
 The run measures femx_torch only, and only on CUDA: without a card it exits
 nonzero and prints no result, as it does when jax, jaxlib, flax or femx is
 loaded once the window has closed. Every FEMX_* variable is cleared and the
@@ -72,13 +77,26 @@ def main(argv=None) -> int:
         return 3
     torch.set_num_threads(HOST_THREADS)
     sys.path[:0] = [str(HERE), str(ROOT)]
+    from harness import ranks
     from harness.device import card_power_limit
     from harness.session import forbidden_modules, run_cell
 
-    device = torch.device("cuda", 0)
-    result = run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace), device,
-                      T_START)
-    found = forbidden_modules()
+    n = ranks.devices_of(ROOT, args.workload)
+    found = []
+    if n > 1:
+        try:
+            recs = ranks.run_ranks(ROOT, args.workload, args.seed, args.seconds,
+                                   bool(args.trace), n, T_START)
+        except ranks.RanksFailed as e:
+            print(f"the run ended: {e}", file=sys.stderr)
+            return 5
+        result = recs[0]["line"]
+        found = [m for r in recs for m in r["forbidden"]]
+    else:
+        device = torch.device("cuda", 0)
+        result = run_cell(ROOT, args.workload, args.seed, args.seconds, bool(args.trace), device,
+                          T_START)
+    found = sorted(set(found) | set(forbidden_modules()))
     if found:
         print(f"the run loaded {', '.join(found)}: it measures femx_torch alone", file=sys.stderr)
         return 4

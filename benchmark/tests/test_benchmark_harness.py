@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from bench_cases import BENCH, ROOT, run_small, small_copy
+from bench_cases import BENCH, ROOT, add_cell, run_small, run_small_ranks, small_copy
 
 from harness import traffic
 from harness.registry import Registry
@@ -57,6 +57,26 @@ def test_a_new_cell_needs_only_new_files_and_entries(tmp_path):
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     res = run_small(root, "box1m-struct-cases2", seconds=0.5)
     assert res["correct"] and {"setup_s", "case_s", "case_p95_s"} <= set(res["metrics"])
+
+    # a kind of cell that harness.cells does not hold, from its own file
+    (root / "benchmark/kinds").mkdir()
+    (root / "benchmark/kinds/cases_residual.py").write_text(
+        "from harness import cells\n"
+        "COMPARED = ['residual']\n"
+        "def run(run, seed, seconds, t_start):\n"
+        "    cells.run_cases(run, seed, seconds, t_start)\n")
+    mix["kind"] = "cases_residual"
+    (root / "benchmark/traffic/cases_residual.json").write_text(json.dumps(mix))
+    add_cell(root, "box1m-struct-residual", "box1m-struct", "cases_residual")
+    res = run_small(root, "box1m-struct-residual", seconds=0.5)
+    assert res["correct"] and list(res["compared"]) == ["residual", "failed_requests"]
+
+    # a cell of two ranks, from a configuration that names them
+    add_cell(root, "box1m-struct-cases-2rank", "box1m-struct-2rank", "cases", devices=2)
+    recs = run_small_ranks(root, "box1m-struct-cases-2rank", seconds=0.5)
+    res = recs[0]["line"]
+    assert res["correct"] and {"setup_s", "case_s", "case_p95_s"} <= set(res["metrics"])
+    assert len(res["device"]["memory_peak_bytes_by_rank"]) == 2
     assert all(p.read_bytes() == b for p, b in before.items())
 
 
