@@ -687,13 +687,15 @@ class SolidReactionAnalysis:
         solver = self._dist_solver
         us, infos = [], []
         for case in force_cases:
-            fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
-            if self._structured:
-                u, dinfo = solver.solve(fg, tol=t)
-                it, rn, ok = dinfo["iterations"], dinfo["residual"], dinfo["converged"]
-            else:
-                u, it, rn, ok = solver.solve(fg, tol=t, maxiter=10000)
-            us.append(np.asarray(u))
+            with span("solid.case"):
+                fg = bc_mod.solid_point_loads(self.mesh, case, self.neumann_nodes)[0] * mask_g
+                with span("solid.cg"):
+                    if self._structured:
+                        u, dinfo = solver.solve(fg, tol=t)
+                        it, rn, ok = dinfo["iterations"], dinfo["residual"], dinfo["converged"]
+                    else:
+                        u, it, rn, ok = solver.solve(fg, tol=t, maxiter=10000)
+                us.append(np.asarray(u))
             infos.append({"iterations": int(it), "residual": float(rn), "converged": bool(ok)})
         self.case_solve_info = infos
         return np.stack(us)

@@ -4,7 +4,9 @@ shard_map CG loops, femx/parallel/halo.py:316-360).
 
 Two all_reduces per iteration: p.Ap, and (r.r, r.z) together; the stopping
 test reads r.r on the host once per iteration, as pcg does. The stopping
-test and breakdown guards are femx's.
+test and breakdown guards are femx's. Traced, it records pcg's spans and
+counter: cg.apply, cg.precond and cg.wait for the start and each iteration,
+and cg.iterations.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from femx_torch.parallel import comm
+from femx_torch.profiling import count, span
 from femx_torch.solve.cg import CGResult
 
 
@@ -34,31 +37,36 @@ def pcg_dist(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     bnorm_safe = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     atol2 = (tol * bnorm_safe) ** 2
     if r0 is None:
-        r = b - A(x)
-        z = minv(r)
-        p = z
+        with span("cg.apply"):
+            r = b - A(x)
     else:
         r = r0.clone()
+    with span("cg.precond"):
         z = minv(r)
-        p = p0.clone()
+    p = z if r0 is None else p0.clone()
     rr, rz = comm.dots((r, r), (r, z), weight=weight)
     k = 0
     while k < maxiter:
         go = torch.isfinite(rr) & (rz > 0) & (rr > atol2)
-        if not bool(go):  # the one host read per iteration
+        with span("cg.wait"):
+            stop = not bool(go)  # the one host read per iteration
+        if stop:
             break
-        Ap = A(p)
+        with span("cg.apply"):
+            Ap = A(p)
         (pAp,) = comm.dots((p, Ap), weight=weight)
         pos = pAp > 0
         alpha = torch.where(pos, rz / torch.where(pos, pAp, torch.ones_like(pAp)),
                             torch.zeros_like(pAp))
         x = x + alpha * p
         r = r + (-alpha) * Ap
-        z = minv(r)
+        with span("cg.precond"):
+            z = minv(r)
         rr, rz_new = comm.dots((r, r), (r, z), weight=weight)
         beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta * p
         rz = rz_new
         k += 1
+    count("cg.iterations", k)
     res = float(torch.sqrt(rr) / bnorm_safe)
     return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol, r=r, p=p)

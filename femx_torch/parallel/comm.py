@@ -13,6 +13,11 @@ and the collectives are ``torch.distributed`` calls on the rank's device:
   of every rank's two boundary blocks, from which each rank keeps its
   neighbours'.
 
+Tracing (femx_torch.profiling): each collective of a group of two or more
+ranks is a span, ``comm.all_reduce``, ``comm.all_gather`` or
+``comm.exchange`` (its ``comm.all_gather`` inside), and adds the bytes of
+the tensor this rank hands to it to the counter ``comm.bytes``.
+
 Backend rule (``backend_for``): ``nccl`` when every rank has a CUDA device
 of its own, ``gloo`` on the CPU or when the ranks outnumber the CUDA
 devices (NCCL refuses two ranks on one GPU). gloo takes CUDA tensors for
@@ -42,6 +47,8 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from femx_torch.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -183,10 +190,17 @@ def require_world(n: int) -> None:
 
 
 # -- collectives --------------------------------------------------------------
+def _payload(t: torch.Tensor) -> int:
+    """Bytes of the tensor a rank hands to a collective."""
+    return t.numel() * t.element_size()
+
+
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
     """Sum over ranks (femx's psum), in place; returns t."""
     if world_size() > 1:
-        dist.all_reduce(t)
+        with span("comm.all_reduce"):
+            count("comm.bytes", _payload(t))
+            dist.all_reduce(t)
     return t
 
 
@@ -196,8 +210,10 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return t[None].clone()
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t)
+    with span("comm.all_gather"):
+        count("comm.bytes", _payload(t))
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t)
     return torch.stack(parts)
 
 
@@ -208,8 +224,7 @@ def reduce_scatter(t: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return t.clone()
     chunk = t.shape[0] // n
-    s = t.clone()
-    dist.all_reduce(s)
+    s = all_reduce(t.clone())
     r = rank()
     return s[r * chunk:(r + 1) * chunk].clone()
 
@@ -222,9 +237,10 @@ def exchange(to_below: torch.Tensor, to_above: torch.Tensor):
     n, r = world_size(), rank()
     if n == 1:
         return torch.zeros_like(to_above), torch.zeros_like(to_below)
-    g = all_gather(torch.stack([to_below, to_above]))
-    from_below = g[r - 1, 1] if r > 0 else torch.zeros_like(to_above)
-    from_above = g[r + 1, 0] if r + 1 < n else torch.zeros_like(to_below)
+    with span("comm.exchange"):
+        g = all_gather(torch.stack([to_below, to_above]))
+        from_below = g[r - 1, 1] if r > 0 else torch.zeros_like(to_above)
+        from_above = g[r + 1, 0] if r + 1 < n else torch.zeros_like(to_below)
     return from_below, from_above
 
 

@@ -32,6 +32,7 @@ from femx_torch.config import resolve_device
 from femx_torch.parallel import comm
 from femx_torch.parallel.cg import pcg_dist
 from femx_torch.parallel.halo import DistributedMultigrid, HaloStructuredOperator
+from femx_torch.profiling import span
 from femx_torch.solve.multigrid import StructuredMultigrid
 
 
@@ -102,18 +103,26 @@ class DistributedStructuredSolver:
 
         checkpoint_path: CG runs in checkpoint_chunk-iteration segments,
         rank 0 persisting (x, r, p, iterations) between them; a re-run
-        resumes from the file (femx_torch.checkpoint's format)."""
-        f_p = pad_z_raster(np.asarray(f_global, dtype=np.float64) * self.mask_global,
-                           self.grid_old, self.grid_new)
-        f_int = self.op_p.to_internal(f_p)
-        b = self.halo.to_local(f_int)
+        resumes from the file (femx_torch.checkpoint's format).
+
+        Traced: `dist.rhs` (the host's pad and permutation of f, its upload
+        and this rank's slab of it) and `dist.gather` (the all_gather of x,
+        its copy to the host, and the host's inverse permutation and
+        unpadding)."""
+        with span("dist.rhs"):
+            f_p = pad_z_raster(np.asarray(f_global, dtype=np.float64) * self.mask_global,
+                               self.grid_old, self.grid_new)
+            f_int = self.op_p.to_internal(f_p)
+            b = self.halo.to_local(f_int)
         resumed = None
         if checkpoint_path:
             res, resumed = self._solve_checkpointed(b, f_int.shape, tol, checkpoint_path,
                                                     checkpoint_chunk, checkpoint_maxiter)
         else:
             res = self._pcg(b, tol, maxiter)
-        x_int = self.halo.gather_local(res.x).cpu().numpy()
+        with span("dist.gather"):
+            x_int = self.halo.gather_local(res.x).cpu().numpy()
+            u = unpad_z_raster(self.op_p.to_global(x_int), self.grid_old, self.grid_new)
         info = {
             "method": f"distributed_halo_mg_pcg[{self.ndev}xz]"
                       + ("_mixed" if self.mixed else ""),
@@ -127,8 +136,7 @@ class DistributedStructuredSolver:
         }
         if resumed is not None:
             info.update(checkpoint=checkpoint_path, resumed_iterations=resumed)
-        u_p = self.op_p.to_global(x_int)
-        return unpad_z_raster(u_p, self.grid_old, self.grid_new), info
+        return u, info
 
     def reactions(self, u_global) -> np.ndarray:
         """K u on the unpadded lattice, in global raster DOF order, through

@@ -27,6 +27,12 @@ with halo applies, the z-restriction with one plane exchange, the
 z-prolongation fully local; below a handoff level the residual is gathered
 (one all_gather) and the remaining levels of the underlying
 StructuredMultigrid run replicated on every rank.
+
+Traced (femx_torch.profiling): `halo.exchange` around each apply's plane
+exchange; `dmg.level` (level=k) around each distributed level of a
+V-cycle, the coarser ones inside it; `dmg.handoff` around the hand-off's
+all_gather, the replicated levels (their own mg.* spans inside) and the
+slicing back; the counter `dmg.vcycle_calls`.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from femx_torch.assembly_structured import StructuredSolidOperator
 from femx_torch.config import torch_dtype
 from femx_torch.parallel import comm
 from femx_torch.parallel.cg import pcg_dist
+from femx_torch.profiling import count, span
 from femx_torch.solve.multigrid import (StructuredMultigrid, _interp_axis, _join_full,
                                         _restrict_axis, _split_full)
 
@@ -141,19 +148,20 @@ class HaloStructuredOperator:
         slab vector and refresh its ghosts, in place (one exchange)."""
         if self.ndev == 1:
             return f
-        phases = self.local._split_phases(f)
-        first = torch.cat([phases[i][..., 0].reshape(-1) for i in _PZ0])
-        last = torch.cat([phases[i][..., -1].reshape(-1) for i in _PZ0])
-        from_below, from_above = comm.exchange(first, last)
-        new_first = first + from_below
-        new_last = from_above + last if self.rank < self.ndev - 1 else last
-        pos = 0
-        for i in _PZ0:
-            g = phases[i]
-            n = g[..., 0].numel()
-            g[..., 0].copy_(new_first[pos:pos + n].view(g[..., 0].shape))
-            g[..., -1].copy_(new_last[pos:pos + n].view(g[..., -1].shape))
-            pos += n
+        with span("halo.exchange"):
+            phases = self.local._split_phases(f)
+            first = torch.cat([phases[i][..., 0].reshape(-1) for i in _PZ0])
+            last = torch.cat([phases[i][..., -1].reshape(-1) for i in _PZ0])
+            from_below, from_above = comm.exchange(first, last)
+            new_first = first + from_below
+            new_last = from_above + last if self.rank < self.ndev - 1 else last
+            pos = 0
+            for i in _PZ0:
+                g = phases[i]
+                n = g[..., 0].numel()
+                g[..., 0].copy_(new_first[pos:pos + n].view(g[..., 0].shape))
+                g[..., -1].copy_(new_last[pos:pos + n].view(g[..., -1].shape))
+                pos += n
         return f
 
     def apply_local(self, u_loc: torch.Tensor) -> torch.Tensor:
@@ -252,6 +260,7 @@ class DistributedMultigrid:
         return self.halos[0]
 
     def __call__(self, r_loc: torch.Tensor) -> torch.Tensor:
+        count("dmg.vcycle_calls")
         return self._vcycle_local(0, r_loc)
 
     def _restrict_z_halo(self, G: torch.Tensor) -> torch.Tensor:
@@ -272,6 +281,10 @@ class DistributedMultigrid:
         return out
 
     def _vcycle_local(self, k: int, b: torch.Tensor) -> torch.Tensor:
+        with span("dmg.level", level=k):
+            return self._level_local(k, b)
+
+    def _level_local(self, k: int, b: torch.Tensor) -> torch.Tensor:
         mg = self.mg
         halo = self.halos[k]
         om = mg.omegas[k]
@@ -301,13 +314,15 @@ class DistributedMultigrid:
             # each rank, the global last plane from the last rank's ghost),
             # the replicated levels, then this rank's slab of the prolonged
             # correction
-            allg = comm.all_gather(Gc)
-            G_full = torch.cat([allg[d][..., :-1] for d in range(self.ndev)]
-                               + [allg[-1][..., -1:]], dim=-1)
-            cop = mg.levels[self.handoff].op
-            e_c = mg._vcycle(self.handoff, _split_full(cop, G_full) * cop.free_mask)
-            Gf_full = _interp_axis(_interp_axis(_interp_axis(_join_full(cop, e_c), 3), 2), 1)
-            z0 = 2 * comm.rank() * halo.nzl
-            Gf = Gf_full[..., z0:z0 + 2 * halo.nzl + 1]
+            with span("dmg.handoff"):
+                allg = comm.all_gather(Gc)
+                G_full = torch.cat([allg[d][..., :-1] for d in range(self.ndev)]
+                                   + [allg[-1][..., -1:]], dim=-1)
+                cop = mg.levels[self.handoff].op
+                e_c = mg._vcycle(self.handoff, _split_full(cop, G_full) * cop.free_mask)
+                Gf_full = _interp_axis(_interp_axis(_interp_axis(_join_full(cop, e_c), 3), 2),
+                                       1)
+                z0 = 2 * comm.rank() * halo.nzl
+                Gf = Gf_full[..., z0:z0 + 2 * halo.nzl + 1]
         x = x + _split_full(halo.local, Gf) * mask
         return smooth(x, mg.n_smooth)

@@ -194,3 +194,33 @@ def solid_analysis(mesh, force_data, fix_data, kwargs: dict, cases=None, modal=N
     if stresses:
         out["von_mises"] = fa.compute_stresses()[1]
     return out
+
+
+def traced_cases(mesh, force_data, fix_data, kwargs: dict, cases) -> dict:
+    """SolidReactionAnalysis(mesh, ..., **kwargs).run_simulation() on every
+    rank, then solve_cases(cases) twice: with tracing off, then on
+    (femx_torch.profiling). Returns rank 0's answers and records of both
+    passes, the case infos, and the shapes of the distributed structured
+    solver: the cells of each distributed level (the local slab's), the
+    hand-off's, its smoothing sweeps and the ranks."""
+    from femx_torch import profiling
+    from femx_torch.analysis.solid import SolidReactionAnalysis
+
+    fa = SolidReactionAnalysis(mesh, force_data, fix_data, verbose=False, **kwargs)
+    fa.run_simulation()
+    profiling.disable()
+    profiling.collect()
+    u_off = fa.solve_cases(cases)
+    off = profiling.collect()
+    profiling.enable()
+    try:
+        u_on = fa.solve_cases(cases)
+    finally:
+        profiling.disable()
+    on = profiling.collect()
+    dmg = fa._dist_solver.dmg
+    return {"u_off": u_off, "u_on": u_on, "off": off, "on": on,
+            "case_solve_info": list(fa.case_solve_info), "solve_info": dict(fa.solve_info),
+            "local_cells": [tuple(h.local.n_cells) for h in dmg.halos],
+            "handoff_cells": tuple(dmg.mg.levels[dmg.handoff].op.n_cells),
+            "n_smooth": int(dmg.mg.n_smooth), "ranks": comm.world_size()}

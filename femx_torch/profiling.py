@@ -49,6 +49,29 @@ precond_ms divides the preconditioner's time by it), mg.vcycle_calls,
 mg.graph_captures and mg.graph_replays (StructuredMultigrid's calls, the
 CUDA graphs it captured and the calls that replayed one).
 
+The multi-rank solid route (devices=N, femx_torch.parallel) keeps these
+names where it does the same work, so readers of the single-device route
+apply: solid.case and solid.cg around each load case of solve_cases and its
+solve; cg.apply, cg.precond, cg.wait and cg.iterations in pcg_dist. Its
+own:
+
+  dist.rhs, dist.gather               a structured solve's right-hand side
+                                      (host pad and permutation, upload,
+                                      this rank's slab) and its answer
+                                      (all_gather of x, copy to the host,
+                                      inverse permutation and unpadding)
+  halo.exchange                       the plane exchange of a halo apply
+  dmg.level (level=k), dmg.handoff    the distributed V-cycle by level; the
+                                      hand-off's all_gather, the replicated
+                                      levels (their mg.* spans) and the
+                                      slice back
+  comm.all_reduce, comm.all_gather,   each collective of a group of two or
+  comm.exchange                       more ranks (an exchange is one
+                                      all_gather, spanned inside it)
+
+and the counters dmg.vcycle_calls (DistributedMultigrid's calls) and
+comm.bytes (the bytes of the tensors this rank handed to collectives).
+
 While the current CUDA stream captures a graph, `span` and `count` do
 nothing, tracing on or off: no CUDA event or profiler range enters a graph,
 and a captured V-cycle is counted once, as a capture.
