@@ -1,46 +1,8 @@
-"""Shared by the tests of the multi-card cell (not a test file): the
-entries of the cell box13m-struct-cases-4gpu and a way to add them to a
-copy of the benchmark, and a rank function that runs a devices=N cell of
-the small copy traced on the CPU, with the program trace taken there too.
-
-The entries (`cell_box13m_4gpu.json`: its configuration, its workload,
-the end-to-end metrics whose `workloads` it joins, its per-layer metrics)
-are not in BENCHMARK.json: `test_benchmark_harness.py::test_result_line`
-runs every cell listed there in one process, and
-`test_benchmark_ranks.py::test_a_config_without_devices_takes_one_process`
-holds every listed configuration to one rank."""
-
-import json
-from pathlib import Path
+"""Shared by the tests of the multi-card cell (not a test file): a rank
+function that runs a devices=N cell of the small copy traced on the CPU,
+with the program trace taken there too."""
 
 from bench_cases import small_rank
-
-CELL_FILE = Path(__file__).resolve().parent / "cell_box13m_4gpu.json"
-
-
-def cell_entries() -> dict:
-    return json.loads(CELL_FILE.read_text())
-
-
-def add_cell_4gpu(root: Path, mesh_size: float = None) -> None:
-    """The four-card cell's entries added to the copy's BENCHMARK.json at
-    `root`, each at the end of its list; with `mesh_size`, its
-    configuration in the copy meshed at that size."""
-    spec = json.loads((root / "BENCHMARK.json").read_text())
-    cell = cell_entries()
-    spec["configs"] += cell["configs"]
-    spec["workloads"] += cell["workloads"]
-    names = [w["name"] for w in cell["workloads"]]
-    for m in spec["end_to_end"]:
-        if m["name"] in cell["end_to_end_workloads"]:
-            m["workloads"] += names
-    spec["per_layer"] += cell["per_layer"]
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
-    if mesh_size is not None:
-        for c in cell["configs"]:
-            cfg = json.loads((root / c["file"]).read_text())
-            cfg["mesh_size_m"] = mesh_size
-            (root / c["file"]).write_text(json.dumps(cfg))
 
 
 def _take_on_cpu(run):

@@ -1,8 +1,8 @@
-"""The four-card cell, box13m-struct-cases-4gpu, added to a copy of the
-benchmark from its entries alone (dist_cases.py): found by name, and at
-the small copy's size on four gloo ranks on the CPU, traced, correct, on
-four ranks, its Collectives, Krylov and Preconditioners metrics read; and
-the two Collectives readers on a program trace made by hand."""
+"""The four-card cell, box13m-struct-cases-4gpu: found by name in
+BENCHMARK.json, its entries at the end of their lists; at the small
+copy's size on four gloo ranks on the CPU, traced, correct, on four ranks,
+its Collectives, Krylov and Preconditioners metrics read; and the two
+Collectives readers on a program trace made by hand."""
 
 import json
 import types
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from bench_cases import ROOT, run_small_ranks, small_copy
-from dist_cases import add_cell_4gpu, traced_cpu_rank
+from dist_cases import traced_cpu_rank
 
 from harness.registry import Registry
 
@@ -19,13 +19,17 @@ CELL = "box13m-struct-cases-4gpu"
 NEW = ["collective_share.dist", "comm_mib_per_case.dist"]
 
 
-def test_the_cell_is_the_configuration_on_four_cards(tmp_path):
-    root = small_copy(tmp_path)  # the cell's configuration is not in BENCHMARK.json: unmeshed
-    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
-    add_cell_4gpu(root)
-    assert all(p.read_bytes() == b for p, b in before.items())
-    reg = Registry(root, root / "benchmark")
+def test_the_cell_is_the_configuration_on_four_cards():
+    reg = Registry(ROOT)
+    spec = reg.spec
     w = reg.workload(CELL)
+    # new entries come last in their lists
+    assert spec["workloads"][-1] == w and spec["configs"][-1]["name"] == w["config"]
+    dist = [m["name"] for m in spec["per_layer"] if m["name"].endswith(".dist")]
+    assert [m["name"] for m in spec["per_layer"][-len(dist):]] == dist
+    for m in spec["end_to_end"]:
+        listed = m.get("workloads", [])
+        assert CELL not in listed or listed[-1] == CELL, m["name"]
     cfg = reg.config(w["config"])
     assert w["chips"] == 4 and cfg["devices"] == 4 and w["traffic"] == "cases"
     assert cfg["mesh_size_m"] == 0.00625 and cfg["reduced"] == ["mesh_size_m"]
@@ -49,7 +53,6 @@ def test_the_cell_on_four_ranks_traced(tmp_path):
     """16 x 4 x 16 cells (the source's own 0.05 m): 16 % (2 x 4) = 0, the
     first coarsening uniform, as at 128 x 32 x 128."""
     root = small_copy(tmp_path, mesh_size=0.05)
-    add_cell_4gpu(root, mesh_size=0.05)
     recs = run_small_ranks(root, CELL, n=4, seed=2 ** 31 + 13, seconds=0.5, trace=True,
                            fn=traced_cpu_rank)
     line = recs[0]["line"]
