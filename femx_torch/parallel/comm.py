@@ -16,7 +16,11 @@ and the collectives are ``torch.distributed`` calls on the rank's device:
 Tracing (femx_torch.profiling): each collective of a group of two or more
 ranks is a span, ``comm.all_reduce``, ``comm.all_gather`` or
 ``comm.exchange`` (its ``comm.all_gather`` inside), and adds the bytes of
-the tensor this rank hands to it to the counter ``comm.bytes``.
+the tensor this rank hands to it to the counter ``comm.bytes``. A
+collective captured into a CUDA graph records nothing (a capturing stream
+records no span and no count), so every collective also adds its bytes to
+``bytes_sent``, tracing on or off: the graph's owner takes the difference
+around its capture and adds it to ``comm.bytes`` at each replay.
 
 Backend rule (``backend_for``): ``nccl`` when every rank has a CUDA device
 of its own, ``gloo`` on the CPU or when the ranks outnumber the CUDA
@@ -190,9 +194,16 @@ def require_world(n: int) -> None:
 
 
 # -- collectives --------------------------------------------------------------
+bytes_sent = 0  # what this process's collectives were handed, in all
+
+
 def _payload(t: torch.Tensor) -> int:
-    """Bytes of the tensor a rank hands to a collective."""
-    return t.numel() * t.element_size()
+    """Bytes of the tensor a rank hands to a collective (added to
+    `bytes_sent`)."""
+    global bytes_sent
+    n = t.numel() * t.element_size()
+    bytes_sent += n
+    return n
 
 
 def all_reduce(t: torch.Tensor) -> torch.Tensor:

@@ -28,15 +28,42 @@ z-prolongation fully local; below a handoff level the residual is gathered
 (one all_gather) and the remaining levels of the underlying
 StructuredMultigrid run replicated on every rank.
 
+Under NCCL each rank replays its V-cycle as one CUDA graph: the smoothing
+sweeps with their halo applies and exchanges, the restrictions, the
+hand-off's all_gather, the replicated levels with the dense coarse solve,
+and the slice back to the rank's slab. The first call runs eagerly, which
+also makes NCCL's communicator (at its first collective), the masks and the
+packed cell matrices; the second captures on every rank alike (every slab
+has nzl + 1 planes, so the keys agree), in CUDA's thread-local capture mode
+(multigrid._CAPTURE_MODE) so that NCCL's watchdog thread may query its
+events meanwhile; later calls replay. The captured all_gathers share the
+communicator with CG's eager all_reduces and the apply's exchanges; every
+rank issues them in one order. Under gloo (the CPU, or more ranks than
+cards), on a non-contiguous input, inside another capture or on an input
+unlike the captured one, the V-cycle runs eagerly. The replay launches the
+eager V-cycle's kernels in the same order and returns its bits (an
+all_gather is a copy). Every route that calls a DistributedMultigrid
+replays so under NCCL: pcg_halo and DistributedStructuredSolver (its
+solves, checkpointed or not, and load cases), the structured devices=N
+modal's inner solves, and DistributedUnstructuredSolver's lattice coarse
+correction (two calls a preconditioner call; also the unstructured
+devices=N modal's inner solves).
+
 Traced (femx_torch.profiling): `halo.exchange` around each apply's plane
-exchange; `dmg.level` (level=k) around each distributed level of a
-V-cycle, the coarser ones inside it; `dmg.handoff` around the hand-off's
-all_gather, the replicated levels (their own mg.* spans inside) and the
-slicing back; the counter `dmg.vcycle_calls`.
+exchange; in an eager V-cycle `dmg.level` (level=k) around each
+distributed level, the coarser ones inside it, and `dmg.handoff` around
+the hand-off's all_gather, the replicated levels (their own mg.* spans
+inside) and the slicing back; a replay records `dmg.replay` (slot_set and
+the replay) and no span inside it. Counters: `dmg.vcycle_calls` (every
+call), `dmg.graph_captures`, `dmg.graph_replays`; at each replay the bytes
+its captured collectives hand over (the growth of `comm.bytes_sent` over
+the capture) go to `comm.bytes`, so it counts a replayed V-cycle as an
+eager one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -47,8 +74,9 @@ from femx_torch.config import torch_dtype
 from femx_torch.parallel import comm
 from femx_torch.parallel.cg import pcg_dist
 from femx_torch.profiling import count, span
-from femx_torch.solve.multigrid import (StructuredMultigrid, _interp_axis, _join_full,
-                                        _restrict_axis, _split_full)
+from femx_torch.solve.multigrid import (StructuredMultigrid, _graph_key, _graphable,
+                                        _interp_axis, _join_full, _restrict_axis,
+                                        _split_full, _VcycleGraph)
 
 # pz=0 phase indices (phase index = px*4 + py*2 + pz)
 _PZ0 = (0, 2, 4, 6)
@@ -56,6 +84,15 @@ _PZ0 = (0, 2, 4, 6)
 
 def _host(w):
     return None if w is None else w.cpu().numpy()
+
+
+def _replayable(r: torch.Tensor) -> bool:
+    """Whether a distributed V-cycle on `r` may take the graph: `_graphable`,
+    and the group's collectives can be captured (NCCL, or a group of one
+    rank). Every rank decides alike, from nothing rank-local: a rank that
+    captured while another ran eagerly would pair their collectives
+    wrongly."""
+    return _graphable(r) and (comm.world_size() == 1 or comm.backend() == "nccl")
 
 
 class HaloStructuredOperator:
@@ -227,7 +264,14 @@ class DistributedMultigrid:
     Level l runs distributed while its z cell count divides 2 * ranks, its
     coarsening is uniform (all three axes) and its gap is not ghost-padded
     (femx's rule, femx/parallel/halo.py:415-433); the remaining levels run
-    replicated after one all_gather."""
+    replicated after one all_gather.
+
+    Under NCCL a call on a contiguous CUDA input replays the V-cycle as one
+    CUDA graph (`_VcycleGraph`, StructuredMultigrid's; the module's
+    docstring says when)."""
+
+    _graph: Optional[_VcycleGraph] = None  # made by the first call that may replay
+    _graph_bytes = 0  # what the captured collectives hand over at each replay
 
     def __init__(self, mg: StructuredMultigrid, mesh=None):
         if getattr(mg, "smoother", "jacobi") != "jacobi":
@@ -261,7 +305,23 @@ class DistributedMultigrid:
 
     def __call__(self, r_loc: torch.Tensor) -> torch.Tensor:
         count("dmg.vcycle_calls")
-        return self._vcycle_local(0, r_loc)
+        g = self._graph
+        if not _replayable(r_loc) or (g is not None and g.key != _graph_key(r_loc)):
+            return self._vcycle_local(0, r_loc)
+        if g is None:  # the warm-up: NCCL's communicator, masks, packed cell matrices
+            self._graph = _VcycleGraph(r_loc)
+            return self._vcycle_local(0, r_loc)
+        if not g.captured:
+            before = comm.bytes_sent
+            g.capture(functools.partial(self._vcycle_local, 0))
+            self._graph_bytes = comm.bytes_sent - before
+            count("dmg.graph_captures")
+        out = torch.empty_like(r_loc)
+        with span("dmg.replay"):
+            g.replay(r_loc, out)
+        count("dmg.graph_replays")
+        count("comm.bytes", self._graph_bytes)
+        return out
 
     def _restrict_z_halo(self, G: torch.Tensor) -> torch.Tensor:
         """z-restriction of a local joined grid (3, Px, Py, 2nzl+1) ->

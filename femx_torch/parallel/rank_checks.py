@@ -107,6 +107,51 @@ def structured_solve(n_cells, spacing, mask_global, f_int, dtype="float64", tol=
     return {"bj": (x, k, res, ok), "mg": (x2, k2, res2, ok2), "distributed_levels": dmg.n_dist}
 
 
+def dist_vcycle_graph(n_cells, spacing, mask_global, calls: int = 5, tol: float = 1e-8,
+                      device="cuda", seed: int = 0) -> dict:
+    """The float32 DistributedMultigrid called on `calls` residuals with
+    tracing on (under NCCL: an eager call, a capture, replays), each output
+    against the eager V-cycle's on the same input, and the bytes one eager
+    V-cycle hands the collectives; then float64 pcg_halo to `tol` on a
+    seeded right-hand side, preconditioned by the DistributedMultigrid and
+    by its eager V-cycle alone."""
+    from femx_torch import profiling
+    from femx_torch.parallel.halo import DistributedMultigrid, HaloStructuredOperator, pcg_halo
+    from femx_torch.solve.multigrid import StructuredMultigrid
+
+    op = _structured_op(n_cells, spacing, mask_global, "float32", device)
+    mg = StructuredMultigrid(None, n_cells, 2e11, 0.3, mask_global, spacing=spacing,
+                             dtype=np.float32, fine_op=op, device=device)
+    dmg = DistributedMultigrid(mg)
+    rng = np.random.default_rng(seed)
+    rs = [dmg.halo.to_local(rng.standard_normal(op.ndof)) for _ in range(calls)]
+    profiling.enable()
+    try:
+        got = [dmg(r) for r in rs]
+        calls_rec = profiling.collect()
+        dmg._vcycle_local(0, rs[0])
+        eager_rec = profiling.collect()
+    finally:
+        profiling.disable()
+    want = [dmg._vcycle_local(0, r) for r in rs]
+    halo64 = HaloStructuredOperator(_structured_op(n_cells, spacing, mask_global, "float64",
+                                                   device))
+    f_int = rng.standard_normal(op.ndof) * op.free_mask_host
+    solves = {}
+    for name, minv in (("replayed", dmg), ("eager", lambda r: dmg._vcycle_local(0, r))):
+        x, k, res, ok = pcg_halo(halo64, f_int, tol=tol, preconditioner=minv,
+                                 low_dtype=torch.float32)
+        solves[name] = {"x": x, "iterations": k, "residual": res, "converged": ok}
+    names = [s["name"] for s in calls_rec["spans"]]
+    return {"bitwise": [bool(torch.equal(g, w)) for g, w in zip(got, want)],
+            "counters": calls_rec["counters"],
+            "spans": {n: names.count(n) for n in set(names)},
+            "eager_bytes": eager_rec["counters"].get("comm.bytes", 0),
+            "captured": dmg._graph is not None and dmg._graph.captured,
+            "backend": comm.backend(), "distributed_levels": dmg.n_dist,
+            "levels": len(mg.levels), "solves": solves}
+
+
 def modal_halo(n_cells, spacing, mask_global, rho, v0, n_modes=3, dtype="float64",
                tol=1e-8, inner_tol=1e-10, device="cuda") -> dict:
     """modal_shift_invert_halo from start vector v0 (internal layout)."""
@@ -194,6 +239,60 @@ def solid_analysis(mesh, force_data, fix_data, kwargs: dict, cases=None, modal=N
     if stresses:
         out["von_mises"] = fa.compute_stresses()[1]
     return out
+
+
+def replayed_and_eager(mesh, force_data, fix_data, kwargs: dict, cases,
+                       modal: Optional[dict] = None,
+                       checkpoint_dir: Optional[str] = None) -> dict:
+    """SolidReactionAnalysis(mesh, ..., **kwargs) on every rank, its solve,
+    load cases and modal(**modal) (when given) run twice: first as the
+    program runs them, tracing on (under NCCL every DistributedMultigrid
+    replays its V-cycle from its second call on), then with every
+    DistributedMultigrid call eager. With checkpoint_dir the second pass
+    builds and solves anew (a structured solver's build gives the same
+    bits), each pass checkpointing its solve to a file of its own there;
+    without, it runs the cases and modal of the first pass's analysis (a
+    TG operator's build sums element blocks with atomics, so a rebuild need
+    not give the same bits). Returns rank 0's two passes and the first
+    pass's dmg.* counters."""
+    from femx_torch import profiling
+    from femx_torch.analysis.solid import SolidReactionAnalysis
+    from femx_torch.parallel.halo import DistributedMultigrid
+
+    def solve(name):
+        kw = dict(kwargs)
+        if checkpoint_dir is not None:
+            kw.update(checkpoint=f"{checkpoint_dir}/{name}", checkpoint_chunk=10)
+        fa = SolidReactionAnalysis(mesh, force_data, fix_data, verbose=False, **kw)
+        fa.run_simulation()
+        return fa, {"u": fa.u, "reactions": fa.reaction_forces,
+                    "solve_info": dict(fa.solve_info)}
+
+    def cases_and_modal(fa):
+        out = {"cases": fa.solve_cases(cases), "case_solve_info": list(fa.case_solve_info)}
+        if modal is not None:
+            m = fa.modal(**modal)
+            out.update(omega=_np(m.omega), modes=_np(m.modes), modal_info=dict(fa.modal_info))
+        return out
+
+    profiling.enable()
+    try:
+        fa, replayed = solve("replayed")
+        replayed.update(cases_and_modal(fa))
+    finally:
+        profiling.disable()
+    counters = profiling.collect()["counters"]
+    call = DistributedMultigrid.__call__
+    DistributedMultigrid.__call__ = lambda self, r: self._vcycle_local(0, r)
+    try:
+        eager = {}
+        if checkpoint_dir is not None:
+            fa, eager = solve("eager")
+        eager.update(cases_and_modal(fa))
+    finally:
+        DistributedMultigrid.__call__ = call
+    return {"replayed": replayed, "eager": eager, "backend": comm.backend(),
+            "counters": {k: v for k, v in counters.items() if k.startswith("dmg.")}}
 
 
 def traced_cases(mesh, force_data, fix_data, kwargs: dict, cases) -> dict:

@@ -61,16 +61,22 @@ own:
                                       (all_gather of x, copy to the host,
                                       inverse permutation and unpadding)
   halo.exchange                       the plane exchange of a halo apply
-  dmg.level (level=k), dmg.handoff    the distributed V-cycle by level; the
-                                      hand-off's all_gather, the replicated
-                                      levels (their mg.* spans) and the
-                                      slice back
+  dmg.replay                          a distributed V-cycle replayed as a
+                                      CUDA graph (under NCCL; the slot
+                                      kernel and the replay)
+  dmg.level (level=k), dmg.handoff    an eager distributed V-cycle by level
+                                      (a replay has none); the hand-off's
+                                      all_gather, the replicated levels
+                                      (their mg.* spans) and the slice back
   comm.all_reduce, comm.all_gather,   each collective of a group of two or
   comm.exchange                       more ranks (an exchange is one
                                       all_gather, spanned inside it)
 
-and the counters dmg.vcycle_calls (DistributedMultigrid's calls) and
-comm.bytes (the bytes of the tensors this rank handed to collectives).
+and the counters dmg.vcycle_calls, dmg.graph_captures and
+dmg.graph_replays (DistributedMultigrid's calls, its captures and the calls
+that replayed its graph) and comm.bytes (the bytes of the tensors this rank
+handed to collectives; a replay adds what its captured collectives hand
+over).
 
 While the current CUDA stream captures a graph, `span` and `count` do
 nothing, tracing on or off: no CUDA event or profiler range enters a graph,

@@ -260,6 +260,11 @@ def _graphable(r: torch.Tensor) -> bool:
 
 # device index -> (side stream, anchor graph) of the V-cycle graphs' captures
 _CAPTURE: dict = {}
+# CUDA's stream capture mode: "thread_local" forbids the unsafe calls of the
+# capturing thread alone, so another thread of the process (NCCL's watchdog,
+# querying its events while a distributed V-cycle captures) may call CUDA
+# meanwhile; the graph recorded is the one "global" would record
+_CAPTURE_MODE = "thread_local"
 
 
 def _capture_place(device: torch.device):
@@ -282,7 +287,7 @@ def _capture_place(device: torch.device):
             t = torch.zeros(1, device=torch.device("cuda", idx))
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
-                anchor.capture_begin()
+                anchor.capture_begin(capture_error_mode=_CAPTURE_MODE)
                 try:
                     t.zero_()
                 finally:
@@ -304,10 +309,10 @@ def _clear_cublas_workspaces() -> None:
 class _VcycleGraph:
     """One hierarchy's V-cycle as a CUDA graph, for inputs of one `key`.
 
-    `capture` records on the device's capture stream, into the shared pool
-    (`_capture_place`): slot_copy_in (the residual at the address in
-    slots[0] into a buffer of the pool), the V-cycle, and slot_copy_out (its
-    result to the address in slots[1]). `replay` writes the two addresses
+    `capture` records in `_CAPTURE_MODE` on the device's capture stream,
+    into the shared pool (`_capture_place`): slot_copy_in (the residual at
+    the address in slots[0] into a buffer of the pool), the V-cycle, and
+    slot_copy_out (its result to the address in slots[1]). `replay` writes the two addresses
     with one kernel on the current stream, then replays there. The graph
     goes with this object; the memory it used stays in the pool.
 
@@ -332,7 +337,7 @@ class _VcycleGraph:
         _clear_cublas_workspaces()
         try:
             with torch.cuda.device(device), torch.cuda.stream(stream):
-                self.graph.capture_begin(pool=pool)
+                self.graph.capture_begin(pool=pool, capture_error_mode=_CAPTURE_MODE)
                 try:
                     x = torch.empty(shape, dtype=dtype, device=device)
                     gather.slot_copy_in(self.slots, x)

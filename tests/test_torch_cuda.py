@@ -1006,3 +1006,57 @@ def test_two_rank_analysis_on_the_card_matches_the_cpu_ranks(cuda):
     for k in ("u", "reactions"):
         want = out["cpu"][k]
         assert np.abs(out["cuda"][k] - want).max() <= 1e-9 * np.abs(want).max()
+
+
+def test_two_nccl_ranks_replay_the_distributed_vcycle_bitwise(cuda):
+    """Two ranks on two cards (NCCL): each rank's DistributedMultigrid (one
+    distributed level, the hand-off to a replicated level that smooths, the
+    dense coarse solve) runs eagerly, captures its all_gathers and hand-off
+    at the second call and replays after; every output is the eager
+    V-cycle's to the bit, pcg_halo takes the same iterations to the same x
+    with the replayed and the eager V-cycle, and the counters show one
+    capture, replays after it, and each call's bytes in comm.bytes."""
+    from femx_torch.parallel import launch, rank_checks
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one rank a card")
+    n, calls = (8, 8, 12), 6
+    m3 = np.ones((2 * n[0] + 1, 2 * n[1] + 1, 2 * n[2] + 1, 3))
+    m3[:, :, 0] = 0.0
+    ranks = launch(rank_checks.dist_vcycle_graph, 2, n, (0.05, 0.05, 0.05), m3.reshape(-1),
+                   calls, 1e-8, "cuda", device="cuda", timeout=300, all_ranks=True)
+    for rk in ranks:
+        out = rk.result
+        assert out["backend"] == "nccl" and out["captured"]
+        assert out["distributed_levels"] == 1 and out["levels"] == 3
+        assert out["bitwise"] == [True] * calls
+        assert out["counters"] == {"dmg.vcycle_calls": calls, "dmg.graph_captures": 1,
+                                   "dmg.graph_replays": calls - 1,
+                                   "comm.bytes": calls * out["eager_bytes"]}
+        assert out["spans"]["dmg.replay"] == calls - 1 and out["spans"]["dmg.level"] == 1
+        rep, eag = out["solves"]["replayed"], out["solves"]["eager"]
+        assert rep["converged"] and rep["iterations"] == eag["iterations"]
+        assert np.array_equal(rep["x"], eag["x"])
+
+
+@pytest.mark.parametrize("route", ["structured", "unstructured"])
+def test_two_nccl_ranks_replay_every_route_of_the_distributed_vcycle_bitwise(cuda, tmp_path,
+                                                                            route):
+    """Every route that calls a DistributedMultigrid, on two cards (NCCL):
+    the float32 structured devices=2 solve checkpointed, its load cases
+    and modal with refine (built and run again eagerly), and the
+    unstructured devices=2 solve with a load case (the lattice coarse
+    correction, two calls a preconditioner call; the case run again
+    eagerly on the same solver). Run as the program runs it, each
+    hierarchy captures at its second call and replays after; its answers
+    (u, reactions, cases, frequencies and modes) are the bits, and its
+    iterations the counts, of the eager run."""
+    from femx_torch.parallel import launch, rank_checks
+    from torch_parallel_counts import check_routes, routes_args
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one rank a card")
+    out = launch(rank_checks.replayed_and_eager, 2, *routes_args(route, "cuda", str(tmp_path)),
+                 device="cuda", timeout=600)
+    assert out["backend"] == "nccl"
+    assert check_routes(out, replayed=True) == {"structured": 2, "unstructured": 1}[route]

@@ -11,65 +11,20 @@ from collections import Counter
 import numpy as np
 import pytest
 
-import femx_torch
 from femx_torch.parallel import launch, rank_checks
+from torch_parallel_counts import bytes_of_one_solve, traced_cases_args
 
-H = 0.05
-CELLS = (8, 8, 8)  # 8 % (2 x 2) = 0 and 4 % (2 x 2) = 0: two distributed levels, no padding
 TIMEOUT = 240.0
-F64, F32 = 8, 4
-
-
-def _case(fy):
-    return [{"force_x": 0.0, "force_y": fy, "force_z": 300.0,
-             "force_x_pstn": CELLS[0] * H / 2, "force_y_pstn": CELLS[1] * H,
-             "force_z_pstn": CELLS[2] * H / 2}]
 
 
 @pytest.fixture(scope="module")
 def traced():
-    mesh = femx_torch.box_tet10_from_cells(CELLS, (H, H, H))
-    fixes = [{"pos_x": x, "pos_y": 0.0, "pos_z": z, "fix_x": 0, "fix_y": 0, "fix_z": 0}
-             for x in (0.0, CELLS[0] * H) for z in (0.0, CELLS[2] * H)]
-    kw = dict(E=2e11, v=0.3, dtype=np.float32, cg_tol=1e-8, devices=2, device="cpu")
-    return launch(rank_checks.traced_cases, 2, mesh, _case(-1000.0), fixes, kw,
-                  [_case(-2000.0), _case(-500.0)], device="cpu", timeout=TIMEOUT)
+    return launch(rank_checks.traced_cases, 2, *traced_cases_args(), device="cpu",
+                  timeout=TIMEOUT)
 
 
 def _names(rec):
     return Counter(s["name"] for s in rec["spans"])
-
-
-def _plane(cells):
-    """Entries of one xy plane of a level's nodes (3 components)."""
-    return 3 * (2 * cells[0] + 1) * (2 * cells[1] + 1)
-
-
-def _bytes_of_one_solve(out, iterations):
-    """What pcg_dist, the halo applies, the V-cycle and the answer's gather
-    hand the collectives in one structured solve, counted from the shapes:
-    float64 CG (bb; r.r and r.z; p.Ap and the next r.r, r.z each iteration)
-    and halo apply (one exchange of the first and the ghost planes each
-    apply), the float32 V-cycle (per distributed level the two smoothing
-    passes' and the residual's applies, then one exchange of the coarse
-    level's first plane and half the fine odd plane; the hand-off's
-    all_gather of this rank's coarse slab), and the all_gather of x."""
-    calls = iterations + 1  # the start and each iteration: one apply and one V-cycle
-    dots = F64 * (1 + 2 + 3 * iterations)
-    fine = out["local_cells"][0]
-    applies = calls * 2 * _plane(fine) * F64
-    vcycle = 0
-    levels = out["local_cells"]
-    for k, cells in enumerate(levels):
-        coarse = levels[k + 1] if k + 1 < len(levels) else (cells[0] // 2, cells[1] // 2,
-                                                             cells[2] // 2)
-        vcycle += (2 * out["n_smooth"] + 1) * 2 * _plane(cells) * F32
-        vcycle += 2 * _plane(coarse) * F32
-    last = levels[-1]
-    handoff_nodes = (2 * (last[0] // 2) + 1) * (2 * (last[1] // 2) + 1) * (last[2] + 1)
-    vcycle += 3 * handoff_nodes * F32
-    ndof_local = 3 * (2 * fine[0] + 1) * (2 * fine[1] + 1) * (2 * fine[2] + 1)
-    return dots + applies + calls * vcycle + ndof_local * F64
 
 
 def test_pcg_dist_spans_every_iteration_and_the_start(traced):
@@ -116,7 +71,7 @@ def test_dmg_levels_every_distributed_level(traced):
 
 
 def test_comm_bytes_match_a_count_by_hand(traced):
-    want = sum(_bytes_of_one_solve(traced, i["iterations"])
+    want = sum(bytes_of_one_solve(traced, i["iterations"])
                for i in traced["case_solve_info"])
     assert traced["on"]["counters"]["comm.bytes"] == want
     # an exchange is one all_gather, spanned inside it

@@ -134,8 +134,9 @@ def test_a_cpu_tensor_is_never_graphable():
 @pytest.mark.parametrize("fails", [False, True])
 def test_capture_records_into_the_shared_pool_and_empties_no_cache(monkeypatch, fails):
     """_VcycleGraph with torch.cuda stubbed: the capture stream waits on
-    the caller's, cuBLAS's workspaces are cleared around a capture into the
-    shared pool of slot_copy_in, the V-cycle and slot_copy_out, which ends
+    the caller's, cuBLAS's workspaces are cleared around a capture (CUDA's
+    thread-local capture mode) into the shared pool of slot_copy_in, the
+    V-cycle and slot_copy_out, which ends
     even when the V-cycle raises; nothing synchronizes the card, empties the
     allocator's cache or collects garbage; a replay sets the two addresses,
     then replays."""
@@ -149,8 +150,8 @@ def test_capture_records_into_the_shared_pool_and_empties_no_cache(monkeypatch, 
             log.append(("wait", other))
 
     class Graph:
-        def capture_begin(self, pool=None):
-            log.append(("begin", pool))
+        def capture_begin(self, pool=None, capture_error_mode="global"):
+            log.append(("begin", pool, capture_error_mode))
 
         def capture_end(self):
             log.append("end")
@@ -189,8 +190,9 @@ def test_capture_records_into_the_shared_pool_and_empties_no_cache(monkeypatch, 
     assert g.slots.dtype == torch.int64 and g.slots.numel() == 2
     with pytest.raises(ValueError) if fails else contextlib.nullcontext():
         g.capture(vcycle)
-    assert log == [("wait", "caller"), "clear", ("stream", stream), ("begin", (7, 0)),
-                   ("in", 12), ("vcycle", 12)] + ([] if fails else [("out", 12)]) + [
+    assert log == [("wait", "caller"), "clear", ("stream", stream),
+                   ("begin", (7, 0), "thread_local"), ("in", 12), ("vcycle", 12)] + (
+                       [] if fails else [("out", 12)]) + [
                        "end", "clear"]
     assert g.captured is not fails
     if not fails:
