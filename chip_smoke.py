@@ -294,7 +294,7 @@ def vcycle_state(mg) -> int:
     """Where StructuredMultigrid `mg` stands on its CUDA-graph route: 0
     before its first call on the card, 1 after it, 2 once its V-cycle is
     captured."""
-    g = mg._graph
+    g = mg._route.graph
     return 0 if g is None else 2 if g.captured else 1
 
 

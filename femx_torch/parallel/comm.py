@@ -17,10 +17,9 @@ Tracing (femx_torch.profiling): each collective of a group of two or more
 ranks is a span, ``comm.all_reduce``, ``comm.all_gather`` or
 ``comm.exchange`` (its ``comm.all_gather`` inside), and adds the bytes of
 the tensor this rank hands to it to the counter ``comm.bytes``. A
-collective captured into a CUDA graph records nothing (a capturing stream
-records no span and no count), so every collective also adds its bytes to
-``bytes_sent``, tracing on or off: the graph's owner takes the difference
-around its capture and adds it to ``comm.bytes`` at each replay.
+collective captured into a CUDA graph records no span, and its bytes go to
+the capture's tally (profiling.tally), which the graph's owner counts again
+at each replay.
 
 Backend rule (``backend_for``): ``nccl`` when every rank has a CUDA device
 of its own, ``gloo`` on the CPU or when the ranks outnumber the CUDA
@@ -194,23 +193,11 @@ def require_world(n: int) -> None:
 
 
 # -- collectives --------------------------------------------------------------
-bytes_sent = 0  # what this process's collectives were handed, in all
-
-
-def _payload(t: torch.Tensor) -> int:
-    """Bytes of the tensor a rank hands to a collective (added to
-    `bytes_sent`)."""
-    global bytes_sent
-    n = t.numel() * t.element_size()
-    bytes_sent += n
-    return n
-
-
 def all_reduce(t: torch.Tensor) -> torch.Tensor:
     """Sum over ranks (femx's psum), in place; returns t."""
     if world_size() > 1:
         with span("comm.all_reduce"):
-            count("comm.bytes", _payload(t))
+            count("comm.bytes", t.numel() * t.element_size())
             dist.all_reduce(t)
     return t
 
@@ -222,7 +209,7 @@ def all_gather(t: torch.Tensor) -> torch.Tensor:
         return t[None].clone()
     t = t.contiguous()
     with span("comm.all_gather"):
-        count("comm.bytes", _payload(t))
+        count("comm.bytes", t.numel() * t.element_size())
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t)
     return torch.stack(parts)
@@ -257,6 +244,8 @@ def exchange(to_below: torch.Tensor, to_above: torch.Tensor):
 
 def dots(*pairs, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sum over ranks of dot(a * weight, b) for each (a, b), in one
-    all_reduce (femx's psum(vdot(a * w, b)))."""
+    all_reduce (femx's psum(vdot(a * w, b))): one entry per pair, so that
+    with the ownership weight bound it is pcg's `dots` on rank-local
+    vectors."""
     parts = [torch.dot(a if weight is None else a * weight, b) for a, b in pairs]
     return all_reduce(torch.stack(parts))

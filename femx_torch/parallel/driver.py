@@ -8,8 +8,9 @@ cells carry z_weight 0 and their nodes are fixed, so the solution on the
 real lattice is unchanged.
 
 Precision: float64 CG over the halo apply of the float64-assembled padded
-operator, preconditioned by the distributed V-cycle in the analysis dtype
-(float32: the distributed counterpart of femx_torch.solve.cg.pcg_mixed).
+operator, preconditioned by the distributed V-cycle in the analysis dtype:
+femx_torch.solve.cg.pcg_mixed, the single-device routes' CG, with its dot
+products summed over the ranks.
 femx instead refines float32 CG against the float32 operator cast up
 (femx/parallel/driver.py:148-151), whose rounded cell matrix moves the
 solution off the float64 equilibrium (ROADMAP Queue 3).
@@ -21,6 +22,7 @@ on resume; a file with x alone (femx's) restarts CG from x.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,11 +30,11 @@ import torch
 
 from femx_torch import checkpoint as ckpt
 from femx_torch.assembly_structured import StructuredSolidOperator, pad_z_raster, unpad_z_raster
-from femx_torch.config import resolve_device
+from femx_torch.config import resolve_device, torch_dtype
 from femx_torch.parallel import comm
-from femx_torch.parallel.cg import pcg_dist
 from femx_torch.parallel.halo import DistributedMultigrid, HaloStructuredOperator
 from femx_torch.profiling import span
+from femx_torch.solve.cg import pcg_mixed
 from femx_torch.solve.multigrid import StructuredMultigrid
 
 
@@ -86,14 +88,14 @@ class DistributedStructuredSolver:
         self.op64 = padded_op(np.float64) if self.mixed else self.op_p
         self.halo = HaloStructuredOperator(self.op64) if self.mixed else self.dmg.halo
 
-    def _minv(self, r: torch.Tensor) -> torch.Tensor:
-        if self.mixed:
-            return self.dmg(r.to(torch.float32)).to(r.dtype)
-        return self.dmg(r)
-
     def _pcg(self, b, tol, maxiter, x0=None, r0=None, p0=None):
-        return pcg_dist(self.halo.apply_constrained_local, b, self._minv, tol=tol,
-                        maxiter=maxiter, x0=x0, weight=self.halo.weights_local, r0=r0, p0=p0)
+        """CG on the float64 halo apply, the V-cycle in the analysis dtype
+        (no cast when that is float64): the solve's and each checkpointed
+        chunk's."""
+        return pcg_mixed(self.halo.apply_constrained_local, b, self.dmg, tol=tol,
+                         maxiter=maxiter, low_dtype=torch_dtype(self.dtype), x0=x0, r0=r0,
+                         p0=p0, dots=functools.partial(comm.dots,
+                                                       weight=self.halo.weights_local))
 
     def solve(self, f_global, tol: float = 1e-8, maxiter: int = 10000,
               checkpoint_path: Optional[str] = None, checkpoint_chunk: int = 500,

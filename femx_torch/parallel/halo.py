@@ -19,8 +19,9 @@ femx does these as two ppermutes; here one all_gather of each rank's
 (first, ghost) planes serves both, since a rank's completed first plane is
 its own partial plane plus the plane its lower neighbour sent, summed in
 the same order on the owner and on the neighbour (so ghosts stay bitwise
-equal to their owners). Dot products are ownership-weighted (the ghost
-plane weighs 0) and summed with all_reduce, two per CG iteration.
+equal to their owners). CG is femx_torch.solve.cg's pcg_mixed, whose dot
+products are ownership-weighted here (the ghost plane weighs 0) and summed
+with all_reduce, two per CG iteration.
 
 DistributedMultigrid runs the V-cycle on the same local vectors: smoothing
 with halo applies, the z-restriction with one plane exchange, the
@@ -28,26 +29,26 @@ z-prolongation fully local; below a handoff level the residual is gathered
 (one all_gather) and the remaining levels of the underlying
 StructuredMultigrid run replicated on every rank.
 
-Under NCCL each rank replays its V-cycle as one CUDA graph: the smoothing
-sweeps with their halo applies and exchanges, the restrictions, the
-hand-off's all_gather, the replicated levels with the dense coarse solve,
-and the slice back to the rank's slab. The first call runs eagerly, which
-also makes NCCL's communicator (at its first collective), the masks and the
-packed cell matrices; the second captures on every rank alike (every slab
+Under NCCL each rank replays its V-cycle as one CUDA graph, by
+StructuredMultigrid's route (multigrid._VcycleRoute: eager first call,
+capture at the second, replays after) with `_replayable` in place of its
+rule (under gloo, on the CPU or with more ranks than cards, the V-cycle
+stays eager): the smoothing sweeps with their halo applies and exchanges, the
+restrictions, the hand-off's all_gather, the replicated levels with the
+dense coarse solve, and the slice back to the rank's slab. The eager first
+call also makes NCCL's communicator; every rank captures alike (every slab
 has nzl + 1 planes, so the keys agree), in CUDA's thread-local capture mode
 (multigrid._CAPTURE_MODE) so that NCCL's watchdog thread may query its
-events meanwhile; later calls replay. The captured all_gathers share the
-communicator with CG's eager all_reduces and the apply's exchanges; every
-rank issues them in one order. Under gloo (the CPU, or more ranks than
-cards), on a non-contiguous input, inside another capture or on an input
-unlike the captured one, the V-cycle runs eagerly. The replay launches the
-eager V-cycle's kernels in the same order and returns its bits (an
-all_gather is a copy). Every route that calls a DistributedMultigrid
-replays so under NCCL: pcg_halo and DistributedStructuredSolver (its
-solves, checkpointed or not, and load cases), the structured devices=N
-modal's inner solves, and DistributedUnstructuredSolver's lattice coarse
-correction (two calls a preconditioner call; also the unstructured
-devices=N modal's inner solves).
+events meanwhile. The captured all_gathers share the communicator with
+CG's eager all_reduces and the apply's exchanges; every rank issues them
+in one order. The replay launches the eager V-cycle's kernels in the same
+order and returns its bits (an all_gather is a copy). Every route that
+calls a DistributedMultigrid replays so under NCCL: pcg_halo and
+DistributedStructuredSolver (its solves, checkpointed or not, and load
+cases), the structured devices=N modal's inner solves, and
+DistributedUnstructuredSolver's lattice coarse correction (two calls a
+preconditioner call; also the unstructured devices=N modal's inner
+solves).
 
 Traced (femx_torch.profiling): `halo.exchange` around each apply's plane
 exchange; in an eager V-cycle `dmg.level` (level=k) around each
@@ -55,10 +56,8 @@ distributed level, the coarser ones inside it, and `dmg.handoff` around
 the hand-off's all_gather, the replicated levels (their own mg.* spans
 inside) and the slicing back; a replay records `dmg.replay` (slot_set and
 the replay) and no span inside it. Counters: `dmg.vcycle_calls` (every
-call), `dmg.graph_captures`, `dmg.graph_replays`; at each replay the bytes
-its captured collectives hand over (the growth of `comm.bytes_sent` over
-the capture) go to `comm.bytes`, so it counts a replayed V-cycle as an
-eager one.
+call), `dmg.graph_captures`, `dmg.graph_replays`; a replay counts in
+`comm.bytes` what its capture counted, as an eager V-cycle would.
 """
 
 from __future__ import annotations
@@ -72,11 +71,11 @@ import torch
 from femx_torch.assembly_structured import StructuredSolidOperator
 from femx_torch.config import torch_dtype
 from femx_torch.parallel import comm
-from femx_torch.parallel.cg import pcg_dist
-from femx_torch.profiling import count, span
-from femx_torch.solve.multigrid import (StructuredMultigrid, _graph_key, _graphable,
-                                        _interp_axis, _join_full, _restrict_axis,
-                                        _split_full, _VcycleGraph)
+from femx_torch.profiling import span
+from femx_torch.solve.cg import pcg_mixed
+from femx_torch.solve.multigrid import (StructuredMultigrid, _graphable, _interp_axis,
+                                        _join_full, _restrict_axis, _split_full,
+                                        _VcycleRoute)
 
 # pz=0 phase indices (phase index = px*4 + py*2 + pz)
 _PZ0 = (0, 2, 4, 6)
@@ -236,7 +235,8 @@ def pcg_halo(halo: HaloStructuredOperator, f_internal, tol: float = 1e-8,
 
     preconditioner: "block_jacobi", or a callable on slab-local residuals
     (a DistributedMultigrid). low_dtype: run the preconditioner in this
-    dtype (the float32 V-cycle under float64 CG). f_internal, x0_internal:
+    dtype (the float32 V-cycle under float64 CG; None: the operator's, as
+    CG). f_internal, x0_internal:
     full internal vectors (host or tensor), the same on every rank.
 
     Returns (x_full_internal, iterations, residual_norm, converged); x on
@@ -246,11 +246,9 @@ def pcg_halo(halo: HaloStructuredOperator, f_internal, tol: float = 1e-8,
     minv = halo.block_jacobi() if preconditioner == "block_jacobi" else preconditioner
     if not callable(minv):
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
-    if low_dtype is not None:
-        inner = minv
-        minv = lambda r: inner(r.to(low_dtype)).to(r.dtype)  # noqa: E731
-    res = pcg_dist(halo.apply_constrained_local, b, minv, tol=tol, maxiter=maxiter, x0=x0,
-                   weight=halo.weights_local)
+    res = pcg_mixed(halo.apply_constrained_local, b, minv, tol=tol, maxiter=maxiter,
+                    low_dtype=b.dtype if low_dtype is None else low_dtype, x0=x0,
+                    dots=functools.partial(comm.dots, weight=halo.weights_local))
     x = halo.gather_local(res.x)
     return ((x if as_tensor else x.cpu().numpy()), res.iterations, res.residual_norm,
             res.converged)
@@ -267,11 +265,8 @@ class DistributedMultigrid:
     replicated after one all_gather.
 
     Under NCCL a call on a contiguous CUDA input replays the V-cycle as one
-    CUDA graph (`_VcycleGraph`, StructuredMultigrid's; the module's
-    docstring says when)."""
-
-    _graph: Optional[_VcycleGraph] = None  # made by the first call that may replay
-    _graph_bytes = 0  # what the captured collectives hand over at each replay
+    CUDA graph (`_VcycleRoute`, StructuredMultigrid's, with `_replayable`;
+    the module's docstring says when)."""
 
     def __init__(self, mg: StructuredMultigrid, mesh=None):
         if getattr(mg, "smoother", "jacobi") != "jacobi":
@@ -280,6 +275,7 @@ class DistributedMultigrid:
                 f"(got smoother={mg.smoother!r}); build the wrapped StructuredMultigrid "
                 "with the defaults")
         self.mg = mg
+        self._route = _VcycleRoute("dmg", _replayable)
         self.ndev = comm.world_size() if mesh is None else mesh.size
         self.halos: List[HaloStructuredOperator] = []
         pads = mg._pad_nodes
@@ -304,24 +300,8 @@ class DistributedMultigrid:
         return self.halos[0]
 
     def __call__(self, r_loc: torch.Tensor) -> torch.Tensor:
-        count("dmg.vcycle_calls")
-        g = self._graph
-        if not _replayable(r_loc) or (g is not None and g.key != _graph_key(r_loc)):
-            return self._vcycle_local(0, r_loc)
-        if g is None:  # the warm-up: NCCL's communicator, masks, packed cell matrices
-            self._graph = _VcycleGraph(r_loc)
-            return self._vcycle_local(0, r_loc)
-        if not g.captured:
-            before = comm.bytes_sent
-            g.capture(functools.partial(self._vcycle_local, 0))
-            self._graph_bytes = comm.bytes_sent - before
-            count("dmg.graph_captures")
-        out = torch.empty_like(r_loc)
-        with span("dmg.replay"):
-            g.replay(r_loc, out)
-        count("dmg.graph_replays")
-        count("comm.bytes", self._graph_bytes)
-        return out
+        """M^-1 r on a slab-local residual."""
+        return self._route(r_loc, functools.partial(self._vcycle_local, 0))
 
     def _restrict_z_halo(self, G: torch.Tensor) -> torch.Tensor:
         """z-restriction of a local joined grid (3, Px, Py, 2nzl+1) ->

@@ -147,7 +147,7 @@ def dist_vcycle_graph(n_cells, spacing, mask_global, calls: int = 5, tol: float 
             "counters": calls_rec["counters"],
             "spans": {n: names.count(n) for n in set(names)},
             "eager_bytes": eager_rec["counters"].get("comm.bytes", 0),
-            "captured": dmg._graph is not None and dmg._graph.captured,
+            "captured": dmg._route.graph is not None and dmg._route.graph.captured,
             "backend": comm.backend(), "distributed_levels": dmg.n_dist,
             "levels": len(mg.levels), "solves": solves}
 

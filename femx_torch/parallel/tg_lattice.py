@@ -28,9 +28,9 @@ from femx_torch.assembly_structured import StructuredSolidOperator
 from femx_torch.config import resolve_device, torch_dtype
 from femx_torch.gather import index_tensor, take_rows
 from femx_torch.parallel import comm
-from femx_torch.parallel.cg import pcg_dist
 from femx_torch.parallel.halo import DistributedMultigrid
 from femx_torch.parallel.tg_sharded import ShardedTGOperator
+from femx_torch.solve.cg import pcg
 from femx_torch.solve.lattice_precond import _even_cells, build_lattice_activity_mask
 from femx_torch.solve.multigrid import StructuredMultigrid
 
@@ -219,5 +219,5 @@ class DistributedUnstructuredSolver:
 
         b = top.to_local(f_global).reshape(-1)
         x0 = None if x0_global is None else top.to_local(x0_global).reshape(-1)
-        res = pcg_dist(A, b, minv, tol=tol, maxiter=maxiter, x0=x0)
+        res = pcg(A, b, minv, x0=x0, tol=tol, maxiter=maxiter, dots=comm.dots)
         return top.gather_local(res.x), res.iterations, res.residual_norm, res.converged

@@ -32,7 +32,7 @@ from femx_torch.elements import tet10_soa
 from femx_torch.elements.tet10 import GAUSS_WEIGHT_CORRECT, material_matrix
 from femx_torch.gather import index_tensor, take_rows
 from femx_torch.parallel import comm
-from femx_torch.parallel.cg import pcg_dist
+from femx_torch.solve.cg import pcg
 
 
 def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -293,5 +293,5 @@ def pcg_tg_sharded(op: ShardedTGOperator, f_global, tol: float = 1e-8, maxiter: 
 
     b = op.to_local(f_global).reshape(-1)
     x0 = None if x0_global is None else op.to_local(x0_global).reshape(-1)
-    res = pcg_dist(A, b, minv, tol=tol, maxiter=maxiter, x0=x0)
+    res = pcg(A, b, minv, x0=x0, tol=tol, maxiter=maxiter, dots=comm.dots)
     return op.gather_local(res.x), res.iterations, res.residual_norm, res.converged

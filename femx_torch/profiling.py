@@ -15,6 +15,7 @@
   `collect()` gives the stream's time between the two (`device_ns`): the
   span's work as the card runs it, which does not fall to the launch cost
   when the host runs ahead of the card.
+- `tally()`: a block whose counts go to its own dict, tracing on or off.
 - `timed(name, device, **attrs)`: a span that times itself whether tracing
   is on or off, and ends on `torch.cuda.synchronize(device)` on a CUDA
   device; its `seconds` are the analyses' `stage_times`.
@@ -52,8 +53,8 @@ CUDA graphs it captured and the calls that replayed one).
 The multi-rank solid route (devices=N, femx_torch.parallel) keeps these
 names where it does the same work, so readers of the single-device route
 apply: solid.case and solid.cg around each load case of solve_cases and its
-solve; cg.apply, cg.precond, cg.wait and cg.iterations in pcg_dist. Its
-own:
+solve; cg.apply, cg.precond, cg.wait and cg.iterations in pcg (its dots
+summed over the ranks). Its own:
 
   dist.rhs, dist.gather               a structured solve's right-hand side
                                       (host pad and permutation, upload,
@@ -78,9 +79,11 @@ that replayed its graph) and comm.bytes (the bytes of the tensors this rank
 handed to collectives; a replay adds what its captured collectives hand
 over).
 
-While the current CUDA stream captures a graph, `span` and `count` do
-nothing, tracing on or off: no CUDA event or profiler range enters a graph,
-and a captured V-cycle is counted once, as a capture.
+While the current CUDA stream captures a graph, `span` does nothing and
+`count` adds only to an open `tally`, tracing on or off: no CUDA event or
+profiler range enters a graph. A replay counts what its capture counted:
+the V-cycle route (multigrid._VcycleRoute) captures inside a `tally` and
+hands it to `count` at each replay.
 """
 
 from __future__ import annotations
@@ -95,9 +98,9 @@ from typing import Callable, Dict, List
 
 import torch
 
-_ON = False  # the one check a span or count makes with tracing off
+_ON = False  # the one check a span makes with tracing off
 _LOCK = threading.Lock()
-_LOCAL = threading.local()  # per thread: the stack of open spans
+_LOCAL = threading.local()  # per thread: the stack of open spans, the open tally
 _SPANS: List["_Span"] = []
 _COUNTS: Dict[str, int] = defaultdict(int)
 _IDS = itertools.count(1)
@@ -207,12 +210,27 @@ def timed(name: str, device=None, **attrs) -> _Span:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add n to the counter `name` (nothing with tracing off, or while the
-    current CUDA stream captures a graph)."""
-    if not _ON or _capturing():
-        return
-    with _LOCK:
-        _COUNTS[name] += n
+    """Add n to the counter `name`; inside a `tally` block to the tally
+    alone, else nothing with tracing off or while the current CUDA stream
+    captures a graph."""
+    open_tally = getattr(_LOCAL, "tally", None)
+    if open_tally is not None:
+        open_tally[name] += n
+    elif _ON and not _capturing():
+        with _LOCK:
+            _COUNTS[name] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Within the block, what this thread counts goes to the dict yielded
+    ({name: n}) alone, tracing on or off and while a stream captures."""
+    prev = getattr(_LOCAL, "tally", None)
+    _LOCAL.tally = out = defaultdict(int)
+    try:
+        yield out
+    finally:
+        _LOCAL.tally = prev
 
 
 def enable(device=None) -> None:

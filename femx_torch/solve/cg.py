@@ -3,11 +3,14 @@
 The loop is a Python loop with one host read per iteration for the stopping
 test; every other scalar (alpha, beta, rz) stays a 0-d tensor on the
 vectors' device and in their dtype, so float32 solves stay float32.
+
+pcg is the multi-rank routes' CG too: their `dots` sum over the ranks, as
+femx's psum'd dots in its shard_map CG loops (femx/parallel/halo.py:316).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -33,6 +36,11 @@ def _as_precond(M_inv) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda r: M_inv * r
 
 
+def _local_dots(*pairs) -> List[torch.Tensor]:
+    """dot(a, b) for each (a, b), one 0-d tensor each."""
+    return [torch.dot(a, b) for a, b in pairs]
+
+
 def pcg(
     A: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -42,6 +50,7 @@ def pcg(
     maxiter: int = 10000,
     r0: Optional[torch.Tensor] = None,
     p0: Optional[torch.Tensor] = None,
+    dots: Callable[..., Sequence[torch.Tensor]] = _local_dots,
 ) -> CGResult:
     """Preconditioned CG for SPD A.
 
@@ -54,6 +63,9 @@ def pcg(
       r0, p0: with x0, a previous call's exit state (CGResult.r, .p): the
         recurrences continue from it (no initial residual apply), giving
         the iterates of one uninterrupted run.
+      dots: dots((a, b), ...) -> one 0-d tensor per pair. On vectors split
+        over ranks, comm.dots with the ownership weight: one all_reduce a
+        call, two an iteration (r.r and r.z are formed together).
 
     The stopping test and breakdown guards are femx's: continue while
     ||r||^2 is finite, r.z > 0, ||r||^2 > (tol ||b||)^2 and k < maxiter;
@@ -62,7 +74,8 @@ def pcg(
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     Minv = _as_precond(M_inv_diag)
 
-    bnorm = torch.sqrt(torch.dot(b, b))
+    (bb,) = dots((b, b))
+    bnorm = torch.sqrt(bb)
     bnorm_safe = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     atol2 = (tol * bnorm_safe) ** 2
 
@@ -74,10 +87,9 @@ def pcg(
     with span("cg.precond"):
         z = Minv(r)
     p = z if r0 is None else p0.clone()
-    rz = torch.dot(r, z)
+    rr, rz = dots((r, r), (r, z))
     k = 0
     while k < maxiter:
-        rr = torch.dot(r, r)
         go = torch.isfinite(rr) & (rz > 0) & (rr > atol2)
         with span("cg.wait"):
             stop = not bool(go)  # the one host read per iteration
@@ -85,7 +97,7 @@ def pcg(
             break
         with span("cg.apply"):
             Ap = A(p)
-        pAp = torch.dot(p, Ap)
+        (pAp,) = dots((p, Ap))
         pos = pAp > 0
         alpha = torch.where(pos, rz / torch.where(pos, pAp, torch.ones_like(pAp)),
                             torch.zeros_like(pAp))
@@ -93,13 +105,13 @@ def pcg(
         r = r + (-alpha) * Ap
         with span("cg.precond"):
             z = Minv(r)
-        rz_new = torch.dot(r, z)
+        rr, rz_new = dots((r, r), (r, z))
         beta = torch.where(rz > 0, rz_new / rz, torch.zeros_like(rz))
         p = z + beta * p
         rz = rz_new
         k += 1
     count("cg.iterations", k)
-    res = float(torch.sqrt(torch.dot(r, r)) / bnorm_safe)
+    res = float(torch.sqrt(rr) / bnorm_safe)
     return CGResult(x=x, iterations=k, residual_norm=res, converged=res <= tol, r=r, p=p)
 
 
@@ -228,6 +240,7 @@ def pcg_mixed(
     x0: Optional[torch.Tensor] = None,
     r0: Optional[torch.Tensor] = None,
     p0: Optional[torch.Tensor] = None,
+    dots: Callable[..., Sequence[torch.Tensor]] = _local_dots,
 ) -> CGResult:
     """High-precision PCG with a low-precision preconditioner
     (femx.solve.cg.pcg_mixed): the CG recurrences, the operator and the
@@ -238,10 +251,10 @@ def pcg_mixed(
     operator, so the low-precision operator inside the preconditioner may
     differ from it (a float32-rounded cell matrix) and only the rate pays.
     x0 (with r0, p0: pcg's exit state) resumes it, as pcg does (the chunks
-    of a checkpointed solve).
+    of a checkpointed solve); dots is pcg's.
     """
     def minv(r):
         return M_inv_low(r.to(low_dtype)).to(b_high.dtype)
 
     return pcg(A_high, b_high, M_inv_diag=minv, x0=x0, tol=tol, maxiter=maxiter, r0=r0,
-               p0=p0)
+               p0=p0, dots=dots)

@@ -29,7 +29,8 @@ alone for as long as the process runs, about what one eager V-cycle of the
 largest hierarchy needs (on the H100, the 1.6M-DOF box's: PERF.md). The
 eager V-cycle and the replay launch the same kernels in the same order and
 return the same bits. The CPU, an input unlike the captured one, and a call
-inside another capture stay eager.
+inside another capture stay eager: `_VcycleRoute`, DistributedMultigrid's
+too.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from femx_torch import gather
 from femx_torch.assembly_structured import (
     _SLOTS, StructuredSolidOperator, _cell_stiffness)
 from femx_torch.config import resolve_device
-from femx_torch.profiling import count, span
+from femx_torch.profiling import count, span, tally
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +355,45 @@ class _VcycleGraph:
         self.graph.replay()
 
 
+class _VcycleRoute:
+    """A hierarchy's V-cycle policy (StructuredMultigrid's and
+    DistributedMultigrid's): eager on an input `eligible` refuses or unlike
+    the captured one; else eager at the first call (the warm-up that fills
+    what a capture must not: packed cell matrices, plans, NCCL's
+    communicator), captured at the second, replayed from then on. Counts
+    <name>.vcycle_calls, .graph_captures and .graph_replays, spans
+    <name>.replay; a replay counts again what its capture counted (a
+    distributed V-cycle's comm.bytes). The eager V-cycle comes with each
+    call: held here, it would tie the hierarchy into a reference cycle,
+    and a dropped hierarchy's device memory would wait for the cyclic
+    garbage collector."""
+
+    def __init__(self, name: str, eligible):
+        self.name, self.eligible = name, eligible
+        self.graph: Optional[_VcycleGraph] = None  # made by the first eligible call
+        self.tally: dict = {}  # what the capture counted
+
+    def __call__(self, r: torch.Tensor, vcycle) -> torch.Tensor:
+        count(f"{self.name}.vcycle_calls")
+        g = self.graph
+        if not self.eligible(r) or (g is not None and g.key != _graph_key(r)):
+            return vcycle(r)
+        if g is None:
+            self.graph = _VcycleGraph(r)
+            return vcycle(r)
+        if not g.captured:
+            with tally() as self.tally:
+                g.capture(vcycle)
+            count(f"{self.name}.graph_captures")
+        out = torch.empty_like(r)
+        with span(f"{self.name}.replay"):
+            g.replay(r, out)
+        count(f"{self.name}.graph_replays")
+        for name, n in self.tally.items():
+            count(name, n)
+        return out
+
+
 def _axis_support(w, n: int) -> np.ndarray:
     """(2n+1,) 1.0 where a doubled-lattice node touches any cell of positive
     weight along this axis, else 0.0 (such nodes stay fixed: their stiffness
@@ -396,8 +436,6 @@ class StructuredMultigrid:
       device: where the levels live (None = CUDA, raising without it).
     """
 
-    _graph: Optional[_VcycleGraph] = None  # made by the first CUDA call
-
     def __init__(
         self,
         dims,
@@ -424,6 +462,7 @@ class StructuredMultigrid:
             raise ValueError(f"smoother must be 'jacobi' or 'chebyshev', "
                              f"got {smoother!r}")
         dev = resolve_device(device)
+        self._route = _VcycleRoute("mg", _graphable)
         self.smoother = smoother
         self.cheb_lower = float(cheb_lower)
         self.cheb_upper = float(cheb_upper)
@@ -623,6 +662,7 @@ class StructuredMultigrid:
                    cheb_upper=1.1) -> "StructuredMultigrid":
         """A hierarchy from ready-made parts (femx_torch.convert)."""
         out = cls.__new__(cls)
+        out._route = _VcycleRoute("mg", _graphable)
         out.levels = list(levels)
         out.omegas = [float(w) for w in omegas]
         out._coarse_inv = coarse_inv
@@ -721,21 +761,7 @@ class StructuredMultigrid:
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         """M^-1 r (internal layout of the finest operator)."""
-        count("mg.vcycle_calls")
-        g = self._graph
-        if not _graphable(r) or (g is not None and g.key != _graph_key(r)):
-            return self._vcycle(0, r)
-        if g is None:  # the warm-up: packed cell matrices, plans
-            self._graph = _VcycleGraph(r)
-            return self._vcycle(0, r)
-        if not g.captured:
-            g.capture(functools.partial(self._vcycle, 0))
-            count("mg.graph_captures")
-        out = torch.empty_like(r)
-        with span("mg.replay"):
-            g.replay(r, out)
-        count("mg.graph_replays")
-        return out
+        return self._route(r, functools.partial(self._vcycle, 0))
 
     @property
     def fine_op(self) -> StructuredSolidOperator:

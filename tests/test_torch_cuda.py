@@ -378,7 +378,7 @@ def test_vcycle_replay_is_the_eager_vcycle_bitwise(cuda, smoother, monkeypatch):
     got = [mg(r) for r in rs]  # eager; capture and replay; three replays
     want = [mg._vcycle(0, r) for r in rs]
     torch.cuda.synchronize()
-    assert mg._graph.captured
+    assert mg._route.graph.captured
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -399,7 +399,7 @@ def test_vcycle_replay_with_the_conv_apply(cuda, monkeypatch):
     got = [mg(r) for r in rs]
     want = [mg._vcycle(0, r) for r in rs]
     torch.cuda.synchronize()
-    assert mg._graph.captured and dict(cm.LAUNCHES) == before  # no cell kernel
+    assert mg._route.graph.captured and dict(cm.LAUNCHES) == before  # no cell kernel
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
 
@@ -446,7 +446,7 @@ def test_vcycle_replay_inside_the_lattice_preconditioner(cuda, monkeypatch):
     got = [pre(r) for r in rs]
     want = [eager(r) for r in rs]
     torch.cuda.synchronize()
-    assert pre.mg._graph.captured
+    assert pre.mg._route.graph.captured
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -473,7 +473,7 @@ def test_vcycle_graph_keeps_no_vector_between_calls(cuda, monkeypatch):
     mg(r)  # eager; capture and first replay; both results dropped
     mg._vcycle(0, r)
     torch.cuda.synchronize()
-    assert mg._graph.captured and mg._graph.slots.numel() * 8 == 16
+    assert mg._route.graph.captured and mg._route.graph.slots.numel() * 8 == 16
     assert torch.cuda.memory_allocated() - base == 512  # the address table's block
     before = torch.cuda.memory_allocated()
     out = mg(r)
@@ -545,7 +545,7 @@ def test_vcycle_graphs_go_with_their_hierarchies(cuda, monkeypatch):
         b, = _residuals(mg, 1)
         res = pcg(mg.fine_op.apply_constrained, b * mg.fine_op.free_mask, M_inv_diag=mg,
                   tol=1e-5, maxiter=50)
-        assert res.converged and mg._graph.captured
+        assert res.converged and mg._route.graph.captured
         del mg, b, res
         gc.collect()
         torch.cuda.synchronize()

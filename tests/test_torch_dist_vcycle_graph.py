@@ -1,16 +1,16 @@
 """DistributedMultigrid's CUDA-graph route on the CPU: on two gloo ranks
 its calls stay the eager V-cycle bit for bit and count no graph; the rule
-that decides the route (NCCL or one rank, read alike on every rank); the
-route (an eager call, a capture in the thread-local mode, replays) and its
-counters with the graph stubbed, and an input unlike the captured one
-taking the eager path; on two gloo ranks with a stand-in graph that runs
-the V-cycle as a capture and a replay would see it, comm.bytes of the
-replayed solves against the hand count of
-tests/test_torch_parallel_tracing.py; comm.bytes_sent; and the
-benchmark's dmg_replay_share reader on a synthetic trace. Every route that
-calls a DistributedMultigrid is in tests/test_torch_dist_vcycle_routes.py;
-the card's own checks (two NCCL ranks) are in tests/test_torch_cuda.py.
-No jax here."""
+that decides the route (NCCL or one rank, read alike on every rank); a
+replay counting what its capture counted, the capture tallied with tracing
+on or off; on two gloo ranks with a stand-in graph that runs the V-cycle
+as a capture and a replay would see it, comm.bytes of the replayed solves
+against the hand count of tests/test_torch_parallel_tracing.py; and the
+benchmark's dmg_replay_share reader on a synthetic trace. The route itself
+(multigrid._VcycleRoute, StructuredMultigrid's too) is tested for both
+hierarchies in tests/test_torch_vcycle_graph.py; every route that calls a
+DistributedMultigrid is in tests/test_torch_dist_vcycle_routes.py; the
+card's own checks (two NCCL ranks) are in tests/test_torch_cuda.py. No jax
+here."""
 
 import contextlib
 import sys
@@ -24,9 +24,7 @@ import torch
 
 from femx_torch import profiling
 from femx_torch.parallel import comm, halo, launch, rank_checks
-from femx_torch.parallel.halo import DistributedMultigrid
 from femx_torch.solve import multigrid
-from femx_torch.solve.multigrid import StructuredMultigrid
 from torch_parallel_counts import bytes_of_one_solve, traced_cases_args
 
 torch.set_num_threads(2)
@@ -84,96 +82,6 @@ def test_the_route_is_decided_by_the_backend_alike_on_every_rank(monkeypatch, wo
     assert halo._replayable(torch.zeros(4)) is want
 
 
-def test_a_cpu_tensor_never_replays():
-    assert not halo._replayable(torch.zeros(8))
-
-
-def _dmg():
-    """A DistributedMultigrid of one rank (no process group) on the CPU."""
-    n = CELLS
-    mg = StructuredMultigrid(None, n, 2e11, 0.3, _clamped_mask(n), spacing=SPACING,
-                             dtype=np.float32, device="cpu")
-    return DistributedMultigrid(mg)
-
-
-def _residual(dmg, seed=0):
-    return torch.as_tensor(np.random.default_rng(seed).standard_normal(dmg.halo.local.ndof)
-                           .astype(np.float32))
-
-
-class _FakeGraph:
-    """Stands in for _VcycleGraph: records what the route asks of it."""
-
-    def __init__(self, r):
-        self.key = multigrid._graph_key(r)
-        self.captured = False
-        self.calls = []
-
-    def capture(self, vcycle):
-        self.calls.append("capture")
-        self.captured = True
-
-    def replay(self, r, out):
-        self.calls.append("replay")
-        out.copy_(-r)
-
-
-@pytest.fixture
-def graphed(monkeypatch):
-    """Every contiguous input may replay; the graph is faked."""
-    monkeypatch.setattr(halo, "_replayable", lambda r: r.is_contiguous())
-    monkeypatch.setattr(halo, "_VcycleGraph", _FakeGraph)
-
-
-def test_route_runs_eagerly_captures_once_then_replays(graphed):
-    dmg = _dmg()
-    r = _residual(dmg)
-    want = dmg._vcycle_local(0, r)
-    profiling.enable()
-    assert torch.equal(dmg(r), want)  # the first call: eager, and the graph made
-    assert dmg._graph.calls == []
-    outs = [dmg(r) for _ in range(4)]
-    rec = profiling.collect()
-    assert dmg._graph.calls == ["capture"] + ["replay"] * 4
-    assert all(torch.equal(o, -r) for o in outs)  # what the fake replay wrote
-    # one rank: no collective, so the replays hand over nothing
-    assert rec["counters"] == {"dmg.vcycle_calls": 5, "dmg.graph_captures": 1,
-                               "dmg.graph_replays": 4, "comm.bytes": 0}
-    names = Counter(s["name"] for s in rec["spans"])
-    assert names["dmg.replay"] == 4
-    # only the first call ran the V-cycle eagerly: one dmg.level a distributed level
-    assert names["dmg.level"] == dmg.n_dist and names["dmg.handoff"] == 1
-
-
-@pytest.mark.parametrize("unlike", ["shape", "dtype", "device", "contiguity"])
-def test_an_input_unlike_the_captured_one_takes_the_eager_path(graphed, unlike):
-    dmg = _dmg()
-    r = _residual(dmg)
-    dmg(r)
-    dmg(r)  # eager; then captured, and replayed once
-    seen = []
-    dmg._vcycle_local = lambda k, x: seen.append((k, x)) or x  # the eager path, recorded
-    other = {"shape": lambda: torch.zeros(r.numel() + 3),
-             "dtype": lambda: r.double(),
-             "device": lambda: r.to("meta"),
-             "contiguity": lambda: torch.zeros(2 * r.numel())[::2]}[unlike]()
-    profiling.enable()
-    assert dmg(other) is other
-    assert seen == [(0, other)]
-    assert dmg._graph.calls == ["capture", "replay"]
-    assert profiling.collect()["counters"] == {"dmg.vcycle_calls": 1}
-    dmg(r)  # the captured input still replays
-    assert dmg._graph.calls[-1] == "replay" and len(seen) == 1
-
-
-def test_every_payload_adds_to_the_bytes_sent(monkeypatch):
-    monkeypatch.setattr(comm, "bytes_sent", 5)
-    t = torch.zeros(10, dtype=torch.float64)
-    assert comm._payload(t) == 80 and comm.bytes_sent == 85
-    profiling.enable()  # tracing on or off alike
-    assert comm._payload(t[:3].float()) == 12 and comm.bytes_sent == 97
-
-
 @contextlib.contextmanager
 def _as_if_capturing():
     """The recorder as a capturing stream sees it: no span, no count."""
@@ -205,11 +113,41 @@ class _MutedGraph:
             out.copy_(self.vcycle(r))
 
 
+@pytest.mark.parametrize("traced_capture", [False, True])
+def test_a_replay_counts_what_its_capture_counted(monkeypatch, traced_capture):
+    """The route tallies its capture, tracing on or off, records nothing of
+    it globally, and hands the tally to count at each replay."""
+    monkeypatch.setattr(multigrid, "_VcycleGraph", _MutedGraph)
+
+    def vcycle(x):
+        profiling.count("comm.bytes", 80)
+        profiling.count("comm.bytes", 12)
+        profiling.count("other")
+        return -x
+
+    route = multigrid._VcycleRoute("dmg", lambda r: True)
+    r = torch.ones(4)
+    if traced_capture:
+        profiling.enable()
+    assert torch.equal(route(r, vcycle), -r)  # eager
+    assert torch.equal(route(r, vcycle), -r)  # captured and replayed
+    assert route.graph.captured and route.tally == {"comm.bytes": 92, "other": 1}
+    if traced_capture:  # the eager call and the replay, not the capture
+        assert profiling.collect()["counters"] == {
+            "dmg.vcycle_calls": 2, "dmg.graph_captures": 1, "dmg.graph_replays": 1,
+            "comm.bytes": 184, "other": 2}
+    profiling.enable()
+    assert torch.equal(route(r, vcycle), -r)
+    assert torch.equal(route(r, vcycle), -r)
+    assert profiling.collect()["counters"] == {
+        "dmg.vcycle_calls": 2, "dmg.graph_replays": 2, "comm.bytes": 184, "other": 2}
+
+
 def replayed_traced_cases(*args):
     """rank_checks.traced_cases with every distributed V-cycle past the
     first call replayed through _MutedGraph."""
     halo._replayable = lambda r: r.is_contiguous()
-    halo._VcycleGraph = _MutedGraph
+    multigrid._VcycleGraph = _MutedGraph
     return rank_checks.traced_cases(*args)
 
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from femx_torch.parallel import halo, launch, rank_checks
+from femx_torch.solve import multigrid
 from test_torch_dist_vcycle_graph import _MutedGraph
 from torch_parallel_counts import check_routes, routes_args
 
@@ -32,7 +33,7 @@ def replayed_and_eager_stubbed(*args):
     """rank_checks.replayed_and_eager with every DistributedMultigrid past
     its first call replayed through _MutedGraph."""
     halo._replayable = lambda r: r.is_contiguous()
-    halo._VcycleGraph = _MutedGraph
+    multigrid._VcycleGraph = _MutedGraph
     return rank_checks.replayed_and_eager(*args)
 
 

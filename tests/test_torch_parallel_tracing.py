@@ -1,17 +1,22 @@
 """The spans and counters of the multi-rank solid route
 (femx_torch.profiling's names, documented there), on two gloo ranks on
-the CPU: pcg_dist's cg.apply / cg.precond / cg.wait and cg.iterations, one
+the CPU: pcg's cg.apply / cg.precond / cg.wait and cg.iterations, one
 solid.case a load case, a dmg.level span for every distributed level, the
 collectives' comm.bytes against a count by hand of what one solve hands
 them, and with tracing off nothing recorded and the same answers, bit for
-bit."""
+bit. Also: pcg with its dot products summed by comm.dots on a group of one
+rank gives the bits of pcg's own sums."""
 
+import functools
 from collections import Counter
 
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
 
-from femx_torch.parallel import launch, rank_checks
+from femx_torch.parallel import comm, launch, rank_checks
+from femx_torch.solve.cg import pcg
 from torch_parallel_counts import bytes_of_one_solve, traced_cases_args
 
 TIMEOUT = 240.0
@@ -27,7 +32,7 @@ def _names(rec):
     return Counter(s["name"] for s in rec["spans"])
 
 
-def test_pcg_dist_spans_every_iteration_and_the_start(traced):
+def test_pcg_spans_every_iteration_and_the_start(traced):
     names = _names(traced["on"])
     its = [i["iterations"] for i in traced["case_solve_info"]]
     assert all(i > 0 for i in its)
@@ -89,3 +94,26 @@ def test_comm_bytes_match_a_count_by_hand(traced):
 def test_tracing_off_records_nothing_and_changes_no_bit(traced):
     assert traced["off"] == {"spans": [], "counters": {}}
     assert np.array_equal(traced["u_off"], traced["u_on"])
+
+
+def test_pcg_with_summed_dots_on_one_rank_gives_the_bits_of_pcg(tmp_path):
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((60, 60))
+    K = torch.as_tensor(q @ q.T + 60.0 * np.eye(60))
+    b = torch.as_tensor(rng.standard_normal(60))
+    minv = 1.0 / torch.diagonal(K)
+    want = pcg(lambda v: K @ v, b, minv, tol=1e-12)
+    assert want.converged and want.iterations > 0
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        assert comm.world_size() == 1 and comm.backend() == "gloo"
+        weight = torch.ones(60, dtype=torch.float64)
+        for dots in (comm.dots, functools.partial(comm.dots, weight=weight)):
+            got = pcg(lambda v: K @ v, b, minv, tol=1e-12, dots=dots)
+            assert got.iterations == want.iterations
+            assert got.residual_norm == want.residual_norm
+            for g, w in zip((got.x, got.r, got.p), (want.x, want.r, want.p)):
+                assert torch.equal(g, w)
+    finally:
+        dist.destroy_process_group()

@@ -1,13 +1,17 @@
-"""StructuredMultigrid's CUDA-graph route on the CPU: a CPU call is the
-eager V-cycle bit for bit and counts no graph; the route (an eager call, capture,
-replay) and its counters with the graph stubbed; an input unlike the
-captured one takes the eager path; the capture's sequence with torch.cuda
-stubbed; span and count do nothing while a stream captures; and the benchmark's vcycle_replay_share reader on a
-synthetic trace. The card's own checks are in tests/test_torch_cuda.py. No
-jax here."""
+"""The V-cycle's CUDA-graph route (multigrid._VcycleRoute) on the CPU: a
+CPU call of StructuredMultigrid is the eager V-cycle bit for bit and counts
+no graph; for StructuredMultigrid and DistributedMultigrid alike (one rank,
+no process group), the route (an eager call, capture, replay) and its
+counters with the graph stubbed, an input unlike the captured one taking
+the eager path, and a CPU tensor never taking the graph; the capture's
+sequence with torch.cuda stubbed; span and count do nothing while a stream
+captures; and the benchmark's vcycle_replay_share reader on a synthetic
+trace. The card's own checks are in tests/test_torch_cuda.py. No jax
+here."""
 
 import sys
 import types
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +19,8 @@ import pytest
 import torch
 
 from femx_torch import profiling
+from femx_torch.parallel import halo
+from femx_torch.parallel.halo import DistributedMultigrid
 from femx_torch.profiling import collect, count, disable, enable, span
 from femx_torch.solve import multigrid
 from femx_torch.solve.multigrid import StructuredMultigrid
@@ -41,23 +47,45 @@ def _mg(smoother="jacobi", n=(8, 8, 8)):
                                smoother=smoother, coarse_dof_limit=200)
 
 
-def _residual(mg, seed=0, dtype=np.float32):
-    return torch.as_tensor(np.random.default_rng(seed).standard_normal(mg.fine_op.ndof)
-                           .astype(dtype))
+def _dmg():
+    """A DistributedMultigrid of one rank (no process group) on the CPU: one
+    distributed level, the hand-off to a replicated level that smooths, and
+    the dense coarse solve."""
+    n = (8, 8, 12)
+    m3 = np.ones((2 * n[0] + 1, 2 * n[1] + 1, 2 * n[2] + 1, 3))
+    m3[:, :, 0] = 0.0
+    mg = StructuredMultigrid(None, n, 2e11, 0.3, m3.reshape(-1), spacing=(0.05, 0.05, 0.05),
+                             dtype=np.float32, device="cpu")
+    return DistributedMultigrid(mg)
+
+
+def _residual(n, seed=0):
+    return torch.as_tensor(np.random.default_rng(seed).standard_normal(n).astype(np.float32))
+
+
+def _hierarchy(kind):
+    """(hierarchy, a residual of its finest level, the name of its eager
+    V-cycle method, the spans one eager call records by name)."""
+    if kind == "mg":
+        mg = _mg()
+        return mg, _residual(mg.fine_op.ndof), "_vcycle", {"mg.level": len(mg.levels)}
+    dmg = _dmg()
+    return (dmg, _residual(dmg.halo.local.ndof), "_vcycle_local",
+            {"dmg.level": dmg.n_dist, "dmg.handoff": 1})
 
 
 @pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
 def test_cpu_call_is_the_eager_vcycle_and_counts_no_graph(smoother):
     mg = _mg(smoother)
     assert len(mg.levels) == 3
-    rs = [_residual(mg, s) for s in range(3)]
+    rs = [_residual(mg.fine_op.ndof, s) for s in range(3)]
     enable()
     got = [mg(r) for r in rs]
     rec = collect()
     for g, r in zip(got, rs):
         assert torch.equal(g, mg._vcycle(0, r))
     assert rec["counters"] == {"mg.vcycle_calls": 3}
-    assert mg._graph is None
+    assert mg._route.graph is None
     assert "mg.replay" not in {s["name"] for s in rec["spans"]}
 
 
@@ -80,55 +108,62 @@ class _FakeGraph:
 
 @pytest.fixture
 def graphed(monkeypatch):
-    """Every contiguous input counts as graphable; the graph is faked."""
+    """Every contiguous input may take the graph, under either hierarchy's
+    rule; the graph is faked."""
     monkeypatch.setattr(multigrid, "_graphable", lambda r: r.is_contiguous())
+    monkeypatch.setattr(halo, "_replayable", lambda r: r.is_contiguous())
     monkeypatch.setattr(multigrid, "_VcycleGraph", _FakeGraph)
 
 
-def test_route_runs_eagerly_captures_once_then_replays(graphed):
-    mg = _mg()
-    r = _residual(mg)
-    want = mg._vcycle(0, r)
+KINDS = ["mg", "dmg"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_route_runs_eagerly_captures_once_then_replays(graphed, kind):
+    h, r, eager, eager_spans = _hierarchy(kind)
+    want = getattr(h, eager)(0, r)
     enable()
-    assert torch.equal(mg(r), want)  # the first call: eager, and the graph made
-    assert mg._graph.calls == []
-    outs = [mg(r) for _ in range(4)]
+    assert torch.equal(h(r), want)  # the first call: eager, and the graph made
+    assert h._route.graph.calls == []
+    outs = [h(r) for _ in range(4)]
     rec = collect()
-    assert mg._graph.calls == ["capture"] + ["replay"] * 4
+    assert h._route.graph.calls == ["capture"] + ["replay"] * 4
     assert all(torch.equal(o, -r) for o in outs)  # what the fake replay wrote
-    assert rec["counters"] == {"mg.vcycle_calls": 5, "mg.graph_captures": 1,
-                               "mg.graph_replays": 4}
-    names = [s["name"] for s in rec["spans"]]
-    assert names.count("mg.replay") == 4
-    # only the first call ran the V-cycle eagerly: one mg.level span a level
-    assert names.count("mg.level") == len(mg.levels)
+    # one rank: no collective, and the fake capture counted nothing to count again
+    assert rec["counters"] == {f"{kind}.vcycle_calls": 5, f"{kind}.graph_captures": 1,
+                               f"{kind}.graph_replays": 4}
+    names = Counter(s["name"] for s in rec["spans"])
+    assert names[f"{kind}.replay"] == 4
+    # only the first call ran the V-cycle eagerly
+    assert {n: names[n] for n in eager_spans} == eager_spans
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("unlike", ["shape", "dtype", "device", "contiguity"])
-def test_an_input_unlike_the_captured_one_takes_the_eager_path(graphed, unlike):
-    mg = _mg()
-    r = _residual(mg)
-    mg(r)
-    mg(r)  # eager; then captured, and replayed once
+def test_an_input_unlike_the_captured_one_takes_the_eager_path(graphed, unlike, kind):
+    h, r, eager, _ = _hierarchy(kind)
+    h(r)
+    h(r)  # eager; then captured, and replayed once
     seen = []
-    mg._vcycle = lambda k, x: seen.append((k, x)) or x  # the eager path, recorded
+    setattr(h, eager, lambda k, x: seen.append((k, x)) or x)  # the eager path, recorded
     other = {"shape": lambda: torch.zeros(r.numel() + 3),
              "dtype": lambda: r.double(),
              "device": lambda: r.to("meta"),
              "contiguity": lambda: torch.zeros(2 * r.numel())[::2]}[unlike]()
     enable()
-    assert mg(other) is other
+    assert h(other) is other
     assert seen == [(0, other)]
-    assert mg._graph.calls == ["capture", "replay"]
-    assert collect()["counters"] == {"mg.vcycle_calls": 1}
-    mg(r)  # the captured input still replays
-    assert mg._graph.calls[-1] == "replay" and len(seen) == 1
+    assert h._route.graph.calls == ["capture", "replay"]
+    assert collect()["counters"] == {f"{kind}.vcycle_calls": 1}
+    h(r)  # the captured input still replays
+    assert h._route.graph.calls[-1] == "replay" and len(seen) == 1
 
 
-def test_a_cpu_tensor_is_never_graphable():
-    r = torch.zeros(8)
-    assert not multigrid._graphable(r)
-    assert not multigrid._graphable(torch.zeros(16)[::2])
+@pytest.mark.parametrize("kind", KINDS)
+def test_a_cpu_tensor_is_never_graphable(kind):
+    eligible = {"mg": multigrid._graphable, "dmg": halo._replayable}[kind]
+    assert not eligible(torch.zeros(8))
+    assert not eligible(torch.zeros(16)[::2])
 
 
 @pytest.mark.parametrize("fails", [False, True])

@@ -36,7 +36,7 @@ def _plane(cells):
 
 
 def bytes_of_one_solve(out, iterations):
-    """What pcg_dist, the halo applies, the V-cycle and the answer's gather
+    """What pcg, the halo applies, the V-cycle and the answer's gather
     hand the collectives in one structured solve, counted from the shapes:
     float64 CG (bb; r.r and r.z; p.Ap and the next r.r, r.z each iteration)
     and halo apply (one exchange of the first and the ghost planes each
